@@ -181,7 +181,6 @@ class FastSim:
                              f"cutoff {rc}")
         self.plan = plan_columns(box_np, rc, self.beta, top.n_atoms_real,
                                  n_base, skin=skin, r_blob=r_blob)
-        self._box0 = box_np.copy()
         S = self.plan.n_sorted
         self.S = S
 
@@ -409,6 +408,7 @@ class FastSim:
         self._owner_base = T(idx_b - role_b, **i64)
 
         # ---- initial state: identity layout, then one rebuild ----
+        self.force_evals = 0        # force evaluations, carried by _replan
         if generator is None:
             generator = torch.Generator(device=dev)
             generator.manual_seed(int(cfg.seed))
@@ -527,16 +527,16 @@ class FastSim:
             # master slot -> subset row (for the force merge), -1 = absent
             gs = torch.where(m, cs[slot_col] + (me - nb[slot_col]),
                              torch.full_like(me, -1))
-            return idx, kk, cs, ovf, gs
+            return idx, kk, ovf, gs
 
-        idx_l, keys_l, cs_l, ov1, gs_l = build(spc["in_L_ext"], spc["S_L"])
-        idx_q, keys_q, cs_q, ov2, gs_q = build(spc["in_Q_ext"], spc["S_Q"])
+        idx_l, keys_l, ov1, gs_l = build(spc["in_L_ext"], spc["S_L"])
+        idx_q, keys_q, ov2, gs_q = build(spc["in_Q_ext"], spc["S_Q"])
         props_l = props_ext[idx_l]
         props_q = props_ext[idx_q]
-        wl_l, nw_l, ov3 = spc["win_L"](
-            x_ext[idx_l], keys_l, box, props_l[:, 4], cs_l)
-        wl_q, nw_q, ov4 = spc["win_Q"](
-            x_ext[idx_q], keys_q, box, props_q[:, 4], cs_q)
+        wl_l, nw_l, ov3 = spc["win_L"](x_ext[idx_l], keys_l, box,
+                                       props_l[:, 4])
+        wl_q, nw_q, ov4 = spc["win_Q"](x_ext[idx_q], keys_q, box,
+                                       props_q[:, 4])
         # merge gathers: master slot -> its row(s) in concat(fL, fQ, 0-row);
         # solute atoms live in both subsets and their halves add
         zrow = spc["S_L"] + spc["S_Q"]
@@ -606,8 +606,7 @@ class FastSim:
             wl = nw = None
         else:
             sp, ovf3c = {}, zero
-            wl, nw, ovf3w = self._windows(x_new, keys, box, props_new[:, 4],
-                                          col_start)
+            wl, nw, ovf3w = self._windows(x_new, keys, box, props_new[:, 4])
         # two overflow sources, bit-packed so recovery can tell them apart:
         # low 15 bits column capacity, high bits window-slice tables
         ovf = (torch.clamp_max(ovf1 + ovf3c, 0x7FFF)
@@ -751,6 +750,7 @@ class FastSim:
             return e_rest, terms
 
         def force(x, st: FastState):
+            self.force_evals += 1
             box = st.box
             couple = st.couple
             props = st.props
@@ -957,6 +957,7 @@ class FastSim:
         box = _np(self.state.box).astype(np.float64)
         keep = dict(_sim_time_ps=self._sim_time_ps,
                     _wall_time=self._wall_time)
+        evals = self.force_evals
         carry = dict(step=self.state.step, couple=self.state.couple)
         psk = self._psk if per_slice_k is None else per_slice_k
         new = FastSim(self.top, self.cfg, x, box_extent=box, velocities=v,
@@ -965,6 +966,7 @@ class FastSim:
         self.__dict__.clear()
         self.__dict__.update(new.__dict__)
         self.__dict__.update(keep)
+        self.force_evals += evals      # plus the new engine's init one
         self.state = self.state.replace(**carry)
 
     def step(self, dt_ps: float, n_steps: int = 1, record_energy=False,

@@ -54,42 +54,61 @@ def make_integrator_step(
                                     1.0)
         return f, e, terms
 
+    # constrained drift: projection plus the velocity update implied by
+    # the constraint displacement, v += (x_c - x_u) / h
+    def drift(x, v, h):
+        xu = x + h * v * dm
+        xc = cp(xu, x)
+        return xc, v + (xc - xu) / h
+
     if kind == "verlet_velocity":
         if thermostat_tau is not None:
             raise NotImplementedError("CSVR is not ported yet")
 
         def one_step(x, v, f, noise=None):
             v_half = v + 0.5 * dt * _accel(f, masses, dof_mask)
-            # constrained drift with the velocity feedback v += (xc - xu)/h
-            xu = x + dt * v_half * dm
-            x_new = cp(xu, x)
-            v_half = v_half + (x_new - xu) / dt
+            x_new, v_half = drift(x, v_half, dt)
             f_new, e, terms = eval_forces(x_new)
             v_new = v_half + 0.5 * dt * _accel(f_new, masses, dof_mask)
             return x_new, cv(v_new, x_new), f_new, e, terms
 
     elif kind == "langevin_middle":
-        if cadence != "light":
-            raise NotImplementedError("only the 'light' cadence is ported")
-        # BAOAB (OpenMM LangevinMiddle): RATTLE once after the kick, SHAKE
-        # once (with velocity feedback over the full dt) after the last
-        # half-drift
+        # BAOAB (OpenMM LangevinMiddle). "light": RATTLE once after the
+        # kick, SHAKE once (with velocity feedback over the full dt) after
+        # the last half-drift. "strict" (g-BAOAB): a projection after every
+        # substep.
         c1 = math.exp(-gamma * dt)
         sigma = torch.sqrt(
             KB * temp_target * ACCEL_FACTOR
             / torch.clamp_min(masses, 1e-6) * (1.0 - c1 * c1))[:, None]
 
-        def one_step(x, v, f, noise=None):
-            v1 = cv(v + dt * _accel(f, masses, dof_mask), x)   # B + RATTLE
-            x1 = x + (0.5 * dt) * v1 * dm                      # A
+        def kick(v, noise):
             if noise is None:
                 noise = torch.randn_like(v)
-            v2 = (c1 * v1 + noise * sigma) * dm                # O
-            xu = x1 + (0.5 * dt) * v2 * dm                     # A
-            x2 = cp(xu, x)
-            v2 = v2 + (x2 - xu) * (1.0 / dt)
-            f_new, e, terms = eval_forces(x2)
-            return x2, v2, f_new, e, terms
+            return noise * sigma
+
+        if cadence == "light":
+            def one_step(x, v, f, noise=None):
+                v1 = cv(v + dt * _accel(f, masses, dof_mask), x)  # B+RATTLE
+                x1 = x + (0.5 * dt) * v1 * dm                      # A
+                v2 = (c1 * v1 + kick(v, noise)) * dm               # O
+                xu = x1 + (0.5 * dt) * v2 * dm                     # A
+                x2 = cp(xu, x)
+                v2 = v2 + (x2 - xu) * (1.0 / dt)
+                f_new, e, terms = eval_forces(x2)
+                return x2, v2, f_new, e, terms
+        elif cadence == "strict":
+            def one_step(x, v, f, noise=None):
+                v1 = v + dt * _accel(f, masses, dof_mask)          # B
+                x1, v1 = drift(x, v1, 0.5 * dt)                    # A
+                v1 = cv(v1, x1)
+                v2 = cv((c1 * v1 + kick(v, noise)) * dm, x1)       # O
+                x2, v2 = drift(x1, v2, 0.5 * dt)                   # A
+                v2 = cv(v2, x2)
+                f_new, e, terms = eval_forces(x2)
+                return x2, v2, f_new, e, terms
+        else:
+            raise ValueError(f"unknown Langevin cadence: {cadence}")
 
     else:
         raise ValueError(f"integrator kind not ported: {kind}")

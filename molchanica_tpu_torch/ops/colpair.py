@@ -260,7 +260,7 @@ def make_anchor_sort_fn(plan: ColPlan, anchor_ids, sizes, atom_mask_base,
 def make_window_fn(plan: ColPlan, per_slice_k: int = PER_SLICE_K):
     """Triangular per-slice window tables.
 
-    windows(xs, keys, box, mask_s, col_start) -> (wl [NC, 3K] int32,
+    windows(xs, keys, box, mask_s) -> (wl [NC, 3K] int32,
     nw [NC] int32, overflow): every (column offset, z-range) entry becomes
     its [lo, hi) slot range (lo clamped to the cluster start, so each
     unordered pair lies in exactly one tile), cut into 128-slot slices.
@@ -278,7 +278,7 @@ def make_window_fn(plan: ColPlan, per_slice_k: int = PER_SLICE_K):
     SH = ZBITS - HB
     NB = 1 << HB
 
-    def windows(xs, keys, box, mask_s, col_start):
+    def windows(xs, keys, box, mask_s):
         dev = xs.device
         lz = box[2]
         wx = box[0] / nx

@@ -127,8 +127,7 @@ def test_window_tables_equal(sim, jitter, psk):
     """Master tables; psk=8 overflows, and both report the same excess."""
     xs, keys, mask = _master_sorted(sim, jitter)
     box = sim.state.box
-    got = T.make_window_fn(sim.plan, per_slice_k=psk)(xs, keys, box, mask,
-                                                      None)
+    got = T.make_window_fn(sim.plan, per_slice_k=psk)(xs, keys, box, mask)
     ref = J.make_window_fn(_jplan(sim.plan), triangular=True,
                            per_slice_k=psk)(_j(xs), _j(keys), _j(box),
                                             _j(mask), None)
@@ -158,7 +157,7 @@ def _instances(sim):
     # the monolithic 'full' kernel on the master tables
     xs, keys, mask = _master_sorted(sim)
     rows = torch.cat([xs, sim._props_base[_master_perm(sim)]], 1)
-    wl, nw, _ = T.make_window_fn(sim.plan)(xs, keys, st.box, mask, None)
+    wl, nw, _ = T.make_window_fn(sim.plan)(xs, keys, st.box, mask)
     for we in (True, False):
         jk = J.make_colpair_direct_fn(_jplan(sim.plan), has_alch=False,
                                       want_energy=we, interpret=True,

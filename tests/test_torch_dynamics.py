@@ -56,6 +56,9 @@ def test_overflow_replan_recovers():
     ref.step(0.002, 4)
     small.step(0.002, 4)
     assert small._psk >= 32 and small.step_count == 4
+    # one evaluation per step, plus one at each engine's init
+    assert ref.force_evals == 1 + 4
+    assert small.force_evals > 1 + 4
     assert int(small.state.overflow) == 0
     d = np.abs(small.positions_unsorted() - ref.positions_unsorted())
     assert d[:ref.top.n_atoms_real].max() < 1e-3

@@ -187,3 +187,4 @@ def test_constraint_projections(pair):
     np.testing.assert_allclose(got_x, ref_x, rtol=0, atol=1e-5)
     np.testing.assert_allclose(got_v, ref_v, rtol=0, atol=1e-5)
     assert np.abs(got_x - x_new).max() > 1e-3     # the projection acted
+

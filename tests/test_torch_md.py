@@ -96,10 +96,14 @@ def _toy(n=64, seed=0):
     return x, v, m, dof, noise
 
 
-@pytest.mark.parametrize("kind,gamma,cap", [
-    ("verlet_velocity", 0.0, None), ("langevin_middle", 1.0, None),
-    ("langevin_middle", 5.0, 30.0), ("langevin_middle", 0.0, None)])
-def test_integrator_step(kind, gamma, cap):
+@pytest.mark.parametrize("kind,gamma,cap,cadence", [
+    ("verlet_velocity", 0.0, None, "light"),
+    ("langevin_middle", 1.0, None, "light"),
+    ("langevin_middle", 5.0, 30.0, "light"),
+    ("langevin_middle", 0.0, None, "light"),
+    ("langevin_middle", 1.0, None, "strict"),
+    ("langevin_middle", 5.0, 30.0, "strict")])
+def test_integrator_step(kind, gamma, cap, cadence):
     x, v, m, dof, noise = _toy()
     kx = np.float32(40.0)
 
@@ -109,9 +113,8 @@ def test_integrator_step(kind, gamma, cap):
     def tforce(xx):
         return -kx * xx, (0.5 * kx * torch.sum(xx * xx), {})
 
-    # a toy position constraint (pull back onto the unit-less sphere of the
-    # reference positions' radii) and velocity projection (drop the radial
-    # part), identical in both frameworks
+    # toy constraints, identical in both frameworks: rescale each position
+    # to its radius in x_ref, and drop the radial part of each velocity
     def jcp(xn, xr):
         return xn * (jnp.linalg.norm(xr, axis=1, keepdims=True)
                      / jnp.linalg.norm(xn, axis=1, keepdims=True))
@@ -129,7 +132,7 @@ def test_integrator_step(kind, gamma, cap):
         return vv - torch.sum(vv * u, dim=1, keepdim=True) * u
 
     common = dict(dt=0.002, temp_target=300.0, thermostat_tau=None,
-                  gamma=gamma, force_cap=cap)
+                  gamma=gamma, force_cap=cap, cadence=cadence)
     js = JI.make_integrator_step(jforce, jnp.asarray(m), jnp.asarray(dof),
                                  kind, constrain_positions=jcp,
                                  constrain_velocities=jcv, **common)

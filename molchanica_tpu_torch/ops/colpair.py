@@ -33,6 +33,7 @@ ICL = 64
 ZBITS = 14        # z quantization bits in the sort key
 LANES = 128       # j slots per slice
 PER_SLICE_K = 64  # window entries per cluster (doubled on overflow)
+CHUNK_ELEMS = 1 << 25  # pair-tile elements per chunk of colpair_plain
 _TWO_OVER_SQRT_PI = 2.0 / math.sqrt(math.pi)
 
 # r^2 floor (A^2): closer pairs (mid-clash, or excluded intramolecular
@@ -397,9 +398,14 @@ def make_window_fn(plan: ColPlan, per_slice_k: int = PER_SLICE_K):
 # ---------------------------------------------------------------------------
 
 def _pair_tile(xi, yi, zi, qi, shi, sei, jx, jy, jz, jq, jsh, jse, valid,
-               rc2, beta, coeffs, want_energy, mode, kpoly):
+               rc2, beta, coeffs, want_energy, mode, kpoly, mags=False):
     """Broadcast pair math of the kernel (same op order as csrc/colpair.cu).
-    Returns (coeff = dV/dr2 masked, e_lj, e_c, dx, dy, dz)."""
+    Returns (coeff = dV/dr2 masked, e_lj, e_c, dx, dy, dz, mag). With
+    `mags`, mag = (|coeff| scale, |energy| scale): each the sum of the
+    magnitudes of the terms that float32 roundoff acts on, the LJ force
+    taken before the C1 blend factor gp (gp -> 0 at the clamp, so its
+    absolute roundoff is relative to the unblended force) and the K-poly
+    as its Horner on |c| and |t| (the monomial terms cancel); else None."""
     dx = xi - jx
     dy = yi - jy
     dz = zi - jz
@@ -412,6 +418,7 @@ def _pair_tile(xi, yi, zi, qi, shi, sei, jx, jy, jz, jq, jsh, jse, valid,
     dlj = zero
     dc = zero
     e_lj = e_c = None
+    c_mag = e_mag = dc_mag = zero
     if mode != "coul":
         sig = shi + jsh                   # inputs are sigma/2
         eps4 = sei * jse                  # inputs are 2 sqrt(eps)
@@ -421,6 +428,10 @@ def _pair_tile(xi, yi, zi, qi, shi, sei, jx, jy, jz, jq, jsh, jse, valid,
         dlj = eps4 * inv_r2 * (gp * s2_raw) * (s2 * s2) * (3.0 - 6.0 * s6)
         if want_energy:
             e_lj = torch.where(valid, eps4 * (s6 * s6 - s6), zero)
+        if mags:
+            c_mag = (eps4.abs() * inv_r2 * s2_raw * (s2 * s2)
+                     * (3.0 + 6.0 * s6))
+            e_mag = eps4.abs() * (s6 * s6 + s6)
     if mode != "lj":
         kqq = qi * jq                     # inputs are q sqrt(k_C)
         if kpoly is not None and not want_energy:
@@ -430,6 +441,12 @@ def _pair_tile(xi, yi, zi, qi, shi, sei, jx, jy, jz, jq, jsh, jse, valid,
             for c in kc[-2::-1]:
                 kk = kk * t + c
             dc = -kqq * (kk * (inv_r2 * inv_r))
+            if mags:
+                ta = t.abs()
+                ka = abs(kc[-1])
+                for c in kc[-2::-1]:
+                    ka = ka * ta + abs(c)
+                dc_mag = kqq.abs() * (ka * (inv_r2 * inv_r))
         else:
             x = beta * (r2s * inv_r)
             ex = torch.exp(-x * x)
@@ -439,20 +456,29 @@ def _pair_tile(xi, yi, zi, qi, shi, sei, jx, jy, jz, jq, jsh, jse, valid,
             erfc_v = g * ex
             dc = -kqq * inv_r2 * (0.5 * erfc_v * inv_r
                                   + (0.5 * _TWO_OVER_SQRT_PI * beta) * ex)
+            dc_mag = dc.abs()
             if want_energy:
                 e_c = torch.where(valid, kqq * erfc_v * inv_r, zero)
+                e_mag = e_mag + e_c.abs()
     coeff = torch.where(valid, dlj + dc, zero)
-    return coeff, e_lj, e_c, dx, dy, dz
+    mag = None
+    if mags:
+        mag = (torch.where(valid, c_mag + dc_mag, zero),
+               torch.where(valid, e_mag, zero) if want_energy else None)
+    return coeff, e_lj, e_c, dx, dy, dz, mag
 
 
-def colpair_plain(rows, pT, wl, nw, box, cfg, chunk_elems=1 << 25,
-                  stats=None):
+def colpair_plain(rows, pT, wl, nw, box, cfg, stats=None):
     """Plain torch version of the kernel: (f [S, 3], e_lj, e_c).
 
     Vectorised over [clusters, slices, 64, 128], chunked over clusters so a
-    chunk's tiles stay under `chunk_elems` elements; reactions go back by
-    index_add_. A `stats` dict gets the count of evaluated (in-cutoff,
-    unmasked) pairs added under "pairs".
+    chunk's tiles stay under CHUNK_ELEMS elements; reactions go back by
+    index_add_. A `stats` dict, if given, receives the magnitudes that
+    `colpair_parity` scales errors by: "pairs", the count of evaluated
+    (in-cutoff, unmasked) pairs; "f_abs" [S], each site's sum over its
+    pairs of the pair force's term magnitudes (`_pair_tile`'s mag);
+    "e_cluster" [NC], each i-cluster's energy (LJ + Coulomb); "e_abs"
+    [NC], its sum of pair energy term magnitudes.
     """
     S = rows.shape[0]
     NC = S // ICL
@@ -463,10 +489,14 @@ def colpair_plain(rows, pT, wl, nw, box, cfg, chunk_elems=1 << 25,
     f = torch.zeros((S, 3), dtype=rows.dtype, device=dev)
     e_lj = torch.zeros((), dtype=rows.dtype, device=dev)
     e_c = torch.zeros((), dtype=rows.dtype, device=dev)
+    if stats is not None:
+        stats.update(pairs=0, f_abs=torch.zeros_like(f[:, 0]),
+                     e_cluster=torch.zeros_like(f[:NC, 0]),
+                     e_abs=torch.zeros_like(f[:NC, 0]))
     lx, ly, lz = box[0], box[1], box[2]
     lanes = _arange(LANES, dev)
     kmax_all = int(nw.max()) if NC else 0
-    cb = max(1, chunk_elems // (max(kmax_all, 1) * ICL * LANES))
+    cb = max(1, CHUNK_ELEMS // (max(kmax_all, 1) * ICL * LANES))
     for c0 in range(0, NC, cb):
         c1 = min(NC, c0 + cb)
         nwc = nw[c0:c1]
@@ -500,15 +530,12 @@ def colpair_plain(rows, pT, wl, nw, box, cfg, chunk_elems=1 << 25,
             wlo, whi = cfg.water_filter
             jok = jok & (((gi >= wlo) & (gi < whi))
                          | ((gj >= wlo) & (gj < whi)))
-        coeff, elj, ec, dx, dy, dz = _pair_tile(
+        coeff, elj, ec, dx, dy, dz, mag = _pair_tile(
             ii(0), ii(1), ii(2), ii(3), ii(4), ii(5),
             jj(pj[0] + shx), jj(pj[1] + shy), jj(pj[2] + shz),
             jj(pj[3]), jj(pj[4]), jj(pj[5]), jok,
             cfg.rc2, cfg.beta, cfg.coeffs, cfg.want_energy, cfg.mode,
-            cfg.kpoly)
-        if stats is not None:
-            stats["pairs"] = stats.get("pairs", 0) + int(torch.count_nonzero(
-                jok & (dx * dx + dy * dy + dz * dz < cfg.rc2)))
+            cfg.kpoly, mags=stats is not None)
         c2 = 2.0 * coeff
         d = torch.stack([c2 * dx, c2 * dy, c2 * dz], -1)          # [c,k,I,L,3]
         f[c0 * ICL:c1 * ICL] -= d.sum(dim=(1, 3)).reshape(-1, 3)
@@ -518,7 +545,34 @@ def colpair_plain(rows, pT, wl, nw, box, cfg, chunk_elems=1 << 25,
                 e_lj = e_lj + elj.sum()
             if ec is not None:
                 e_c = e_c + ec.sum()
+        if stats is not None:
+            r2 = dx * dx + dy * dy + dz * dz
+            stats["pairs"] += int(torch.count_nonzero(jok & (r2 < cfg.rc2)))
+            dn = 2.0 * mag[0] * torch.sqrt(r2)                   # [c,k,I,L]
+            stats["f_abs"][c0 * ICL:c1 * ICL] += dn.sum(dim=(1, 3)).reshape(-1)
+            stats["f_abs"].index_add_(0, gid.reshape(-1),
+                                      dn.sum(dim=2).reshape(-1))
+            if cfg.want_energy:
+                stats["e_cluster"][c0:c1] += sum(
+                    e.sum(dim=(1, 2, 3)) for e in (elj, ec) if e is not None)
+                stats["e_abs"][c0:c1] += mag[1].sum(dim=(1, 2, 3))
     return f, e_lj, e_c
+
+
+def colpair_parity(f, e_cluster, f_ref, stats):
+    """(force ratio, energy ratio) of a kernel's output against the plain
+    version's, each error over the float32 scale that roundoff acts on:
+    max over sites of max_axis|dF| / f_abs, and max over i-clusters of
+    |dE| / e_abs (`stats` from colpair_plain on the same inputs; e_cluster
+    [NC] the kernel's per-cluster energies). Excluded solute pairs carry
+    ~1e5 kcal/mol/A at the C1 clamp, so a ratio to max|F| would let an
+    error of a whole site force through at every other site."""
+    err = (f - f_ref).abs().amax(dim=1)
+    tiny = torch.finfo(f.dtype).tiny
+    rel_f = float((err / torch.clamp_min(stats["f_abs"], tiny)).max())
+    de = (e_cluster - stats["e_cluster"]).abs()
+    rel_e = float((de / torch.clamp_min(stats["e_abs"], tiny)).max())
+    return rel_f, rel_e
 
 
 # ---------------------------------------------------------------------------
@@ -615,17 +669,18 @@ class ColpairDirect:
             raise ValueError("colpair window table does not match rows")
         if rows.device.type == "cpu":
             return colpair_plain(rows, pT, wl, nw, box, self.cfg)
-        f, e = _launch_cuda(self.cfg, rows, pT, wl, nw, box,
+        f, e = colpair_cuda(self.cfg, rows, pT, wl, nw, box,
                             self.params(rows.device))
         ColpairDirect.launches[self.name] = \
             ColpairDirect.launches.get(self.name, 0) + 1
         return f, e[:, 0].sum(), e[:, 1].sum()
 
 
-def _launch_cuda(cfg: KernelCfg, rows, pT, wl, nw, box, params):
-    """Launch csrc/colpair.cu on the current stream. The outputs are made
-    here: f [S, 3] zeroed (the kernel adds i-forces and j reactions with
-    atomics) and per-cluster energies [NC, 2]."""
+def colpair_cuda(cfg: KernelCfg, rows, pT, wl, nw, box, params):
+    """Launch csrc/colpair.cu on the current stream: (f [S, 3], per-cluster
+    energies [NC, 2] = (e_lj, e_c)). The outputs are made here: f zeroed
+    (the kernel adds i-forces and j reactions with atomics). Counts no
+    launch; `ColpairDirect` does."""
     import ctypes
 
     from ..cuda_build import load_library
@@ -643,7 +698,7 @@ def _launch_cuda(cfg: KernelCfg, rows, pT, wl, nw, box, params):
                              f"tensor on {dev}")
     if box.numel() != 3:
         raise ValueError("colpair: box must hold 3 extents")
-    lib = load_library("colpair")
+    lib = load_library()
     f = torch.zeros((S, 3), dtype=torch.float32, device=dev)
     e = torch.zeros((NC, 2), dtype=torch.float32, device=dev)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())

@@ -5,7 +5,10 @@ on the CPU, with the Pallas kernel in interpret mode.
 Tolerances: plan coefficients and every integer table (perm, keys,
 col_start, wl, nw, overflow) exactly equal; kernel forces
 max|dF|/max|F| < 1e-5 and energies rel < 1e-5 (float32 summation order
-only); pair-list energies rel < 1e-5 and forces < 1e-5 of scale.
+only); the plain version in float32 against its float64 run, per site
+< 5e-6 of the site's sum of pair-force term magnitudes and per cluster
+< 2e-6 of its sum of pair-energy term magnitudes; pair-list energies
+rel < 1e-5 and forces < 1e-5 of scale.
 """
 
 import jax
@@ -185,6 +188,80 @@ def test_kernel_plain_matches_pallas(sim, case):
         ref = float(np.float32(ref))
         assert abs(float(got) - ref) <= 1e-5 * max(abs(ref), 1e-3), name
     assert np.abs(fr).max() > 0
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_plain_stats_bound_the_outputs(sim, case):
+    """colpair_plain's magnitude sums: |F| <= the site's sum of pair-force
+    term magnitudes, the cluster energies add up to the totals (rel 1e-5,
+    summation order), and |E_cluster| <= its sum of pair-energy term
+    magnitudes."""
+    name, kern, _, rows, wl, nw = _instances(sim)[case]
+    stats = {}
+    f, e_lj, e_c = T.colpair_plain(rows, rows.T.contiguous(), wl, nw,
+                                   sim.state.box, kern.cfg, stats=stats)
+    assert stats["pairs"] > 0
+    slack = 1.0 + 1e-5
+    assert bool((torch.linalg.vector_norm(f, dim=1)
+                 <= stats["f_abs"] * slack + 1e-6).all()), name
+    assert bool((stats["e_cluster"].abs()
+                 <= stats["e_abs"] * slack + 1e-6).all()), name
+    e_tot = float(e_lj + e_c)
+    assert abs(float(stats["e_cluster"].sum()) - e_tot) \
+        <= 1e-5 * float(stats["e_abs"].sum()) + 1e-6, name
+    assert (float(stats["e_abs"].sum()) > 0) == kern.cfg.want_energy
+    # a kernel that matches exactly passes with ratio 0
+    assert T.colpair_parity(f, stats["e_cluster"], f, stats) == (0.0, 0.0)
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_plain_float32_floor_per_site(sim, case):
+    """The float32 floor that chip_smoke's kernel gate (1e-5 per site and
+    per cluster, between two float32 evaluations) stands on: the plain
+    version against its own float64 run, per site < 5e-6 and per cluster
+    < 2e-6."""
+    name, kern, _, rows, wl, nw = _instances(sim)[case]
+    box = sim.state.box
+    stats32 = {}
+    f, _, _ = T.colpair_plain(rows, rows.T.contiguous(), wl, nw, box,
+                              kern.cfg, stats=stats32)
+    r64 = rows.double()
+    stats64 = {}
+    f64, _, _ = T.colpair_plain(r64, r64.T.contiguous(), wl, nw,
+                                box.double(), kern.cfg, stats=stats64)
+    rel_f, rel_e = T.colpair_parity(f.double(),
+                                    stats32["e_cluster"].double(), f64,
+                                    stats64)
+    assert rel_f < 5e-6, name
+    assert rel_e < 2e-6, name
+
+
+@pytest.mark.parametrize("we", [False, True])
+def test_parity_gate_catches_a_water_lj_error(sim, we):
+    """A 1e-3 error in the LJ well depth of water O, which a limit of
+    1e-4 of max|F| lets through (max|F| sits on excluded solute pairs at
+    the C1 clamp), fails chip_smoke's per-site and per-cluster gate (1e-5)
+    by more than 10x."""
+    st = sim.state
+    sp = st.split
+    kern = sim._split["kernels"][we]["L"]
+    wlo, whi = sim._split["kernels"][we]["Q"].cfg.water_filter
+    x_ext = torch.cat([st.x, torch.full((1, 3), 1e6)])
+    rows = torch.cat([x_ext[sp["idx_l"]], sp["props_l"]], 1)
+    args = (sp["wl_l"], sp["nw_l"], st.box, kern.cfg)
+    stats = {}
+    f, _, _ = T.colpair_plain(rows, rows.T.contiguous(), *args, stats=stats)
+    bad = rows.clone()
+    water = (bad[:, 7] >= wlo) & (bad[:, 7] < whi)
+    assert bool(water.any()) and not bool(water.all())
+    bad[:, 5] = torch.where(water, bad[:, 5] * (1.0 + 1e-3), bad[:, 5])
+    stats_bad = {}
+    f_bad, _, _ = T.colpair_plain(bad, bad.T.contiguous(), *args,
+                                  stats=stats_bad)
+    assert float((f_bad - f).abs().max()) < 1e-4 * float(f.abs().max())
+    rel_f, rel_e = T.colpair_parity(f_bad, stats_bad["e_cluster"], f, stats)
+    assert rel_f > 1e-4
+    assert (rel_e > 1e-4) == we
 
 
 def test_kernel_wrapper_checks(sim):

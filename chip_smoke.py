@@ -5,31 +5,41 @@
 
 Phases, each printed on lines of its own:
   1. the card (nvidia-smi name and power limit) and torch's CUDA version;
-  2. build of the hand-written kernels from csrc/ (nvcc, sm_90a);
+  2. build of the hand-written kernels from csrc/ (one nvcc, sm_90a);
   3. the ~25k-site solvated polyalanine (config 3 of BASELINE.md) from the
      port's own builder, started from the committed eq25k.npz fixture, in
      FastSim with the benchmark's MdConfig;
   4. kernel parity: on the real L and Q subset tables after the first
      rebuild, every colpair instance the path runs (L/Q x force-only/
      energy) against its plain torch version on the same inputs;
-  5. the main path: a sim.step() warm-up and one timed call, then
+  5. the FastSim path: a sim.step() warm-up and one timed call, then
      sim.potential_energy(); kernel launch counts over exactly that run;
-  6. engine parity: the whole force of a fresh engine on the card against
-     the same engine on the CPU (plain kernel twin), on the same state,
-     through both force functions the path runs: force-only (the K-poly
-     kernels of every step) and with energies (its terms too);
-  7. the kernel JSON line, the card line, and the final JSON result line.
-An NVT hold (the mean temperature of further steps near 310 K) runs only
-when --hold N asks for it.
+  6. FastSim engine parity: the whole force of a fresh engine on the card
+     against the same engine on the CPU (plain kernel twin), on the same
+     state, through both force functions the path runs: force-only (the
+     K-poly kernels of every step) and with energies (its terms too);
+  7. MdSim on the same system, state and MdConfig plus use_pallas=True
+     (method cells_pme, the cell-grid kernel K2): construction;
+  8. K2 parity: on the real cell grid after the first rebuild, the CUDA
+     kernel against its plain torch version on the same center rows and
+     ghost array;
+  9. the MdSim path: a warm-up call and one timed call; K2 launch counts
+     over exactly those calls, against force_evals and against
+     n + ceil(n/20) + 1 per call;
+ 10. MdSim engine parity: force_fn on the card against the same MdSim on
+     the CPU, on the initial state;
+ 11. the kernel JSON line, the card line, and the final JSON result line.
+An NVT hold (the mean temperature of further FastSim steps near 310 K)
+runs only when --hold N asks for it.
 
 Kernel parity is held to two gates. The whole-array one: max|dF|/max|F|
 < 1e-4 and total energies rel < 1e-5. And one scaled per site: a force
 error against the sum, over that site's pairs, of the magnitudes of the
 terms each pair force is made of, an energy error against the same sum
-over its i-cluster's pair energies (colpair_parity). Excluded solute pairs
-enter the kernel at ~1e5 kcal/mol/A at the C1 sigma clamp and are
-subtracted again, so the whole-array ratio alone would let an error of a
-whole site force through everywhere else.
+over its i-cluster's (K1) or cell's (K2) pair energies (colpair_parity,
+direct_force_parity). Excluded solute pairs enter the kernels at ~1e5
+kcal/mol/A and are subtracted again, so the whole-array ratio alone would
+let an error of a whole site force through everywhere else.
 
 Fails (non-zero exit, no result line) without a CUDA device, outside a
 checkout of the repository, or when any phase fails.
@@ -57,8 +67,14 @@ PAIR_OPS = {
     ("lj", False): 20 + 23, ("full", True): 20 + 23 + 38 + 4 + 3,
     ("coul", True): 20 + 38 + 3, ("lj", True): 20 + 23 + 4,
 }
+# FP32 operations per in-cutoff pair of csrc/direct_force.cu (same
+# counting): geometry and r^2 clamp 10, softcore LJ with the clip 38, A&S
+# Coulomb 30, force accumulation 7
+K2_PAIR_OPS = 10 + 38 + 30 + 7
 N_TIMED = 1000
 N_WARM = 200
+N_MD_TIMED = 200
+N_MD_WARM = 40
 # kernel vs plain, whole arrays: max|dF| / max|F| and total energy rel
 KERNEL_TOL_F_MAX, KERNEL_TOL_E_TOT = 1e-4, 1e-5
 # kernel vs plain, two float32 evaluations, per site and per i-cluster
@@ -222,6 +238,150 @@ def engine_parity(build, torch):
     say(f"[engine] CPU engine and checks {time.perf_counter() - t0:.1f} s")
 
 
+def k2_parity(md, torch):
+    """K2 (csrc/direct_force.cu) against direct_force_plain on the cell
+    grid of the state after its first rebuild. Returns its JSON entry."""
+    from molchanica_tpu_torch.md.energy import apply_virtual_sites
+    from molchanica_tpu_torch.ops.direct_force import (cell_energies,
+                                                       direct_force_cuda,
+                                                       direct_force_parity,
+                                                       direct_force_plain)
+
+    s = md.state
+    plan, direct = md._plan, md._direct
+    xv = apply_virtual_sites(s.positions, md.top)
+    sa, _, ovf = md._rebuild(xv, s.box)
+    center, ghost = direct.inputs(xv, s.box, sa)
+    args = (s.couple, md._beta)
+    out_k = direct_force_cuda(plan, center, ghost, *args)
+    stats = {}
+    out_p = direct_force_plain(center, ghost, direct.starts, *args,
+                               direct.rc2, stats=stats)
+    torch.cuda.synchronize()
+    e_k = cell_energies(out_k, plan.n_cells)
+    e_p = cell_energies(out_p, plan.n_cells)
+    rel_f, rel_e = direct_force_parity(out_k[:, :3], e_k.sum(1),
+                                       out_p[:, :3], stats)
+    err = float((out_k[:, :3] - out_p[:, :3]).abs().max())
+    f_max = float(out_p[:, :3].abs().max())
+    tot_k, tot_p = float(e_k.sum()), float(e_p.sum())
+    rel_tot = abs(tot_k - tot_p) / max(abs(tot_p), 1e-30)
+    S = center.shape[0]
+    say(f"[parity] direct_force cells={plan.n_cells} C={plan.capacity} "
+        f"S={S} G={ghost.shape[1]} overflow={int(ovf)} "
+        f"pairs={stats['pairs']} slots={S * 9 * 3 * plan.capacity} "
+        f"max|dF|/max|F|={err / f_max:.3e} (max|dF|={err:.4e}, "
+        f"max|F|={f_max:.4e}) e_kernel={tot_k:.6f} e_plain={tot_p:.6f} "
+        f"rel_e={rel_tot:.3e} (e_lj {float(e_k[:, 0].sum()):.4f} / "
+        f"{float(e_p[:, 0].sum()):.4f}, e_c {float(e_k[:, 1].sum()):.4f} / "
+        f"{float(e_p[:, 1].sum()):.4f})")
+    say(f"[parity] direct_force per slot max|dF|/scale={rel_f:.3e}, per "
+        f"cell |dE|/scale={rel_e:.3e} (limits {KERNEL_TOL_F:g}, "
+        f"{KERNEL_TOL_E:g}; total energy {KERNEL_TOL_E_TOT:g})")
+    if not (rel_f < KERNEL_TOL_F and rel_e < KERNEL_TOL_E
+            and rel_tot < KERNEL_TOL_E_TOT):
+        raise SystemExit("direct_force: kernel and plain disagree")
+    ms = cuda_ms(lambda: direct_force_cuda(plan, center, ghost, *args), 20)
+    plain_ms = cuda_ms(lambda: direct_force_plain(
+        center, ghost, direct.starts, *args, direct.rc2), 3)
+    t_ops = stats["pairs"] * K2_PAIR_OPS / PEAK_FP32 * 1e3
+    nbytes = (center.numel() + ghost.numel() + 2 + out_k.numel()) * 4
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    entry = dict(
+        name="direct_force", route="cuda",
+        source="molchanica_tpu_torch/csrc/direct_force.cu",
+        replaces="molchanica_tpu/ops/pallas/direct_force.py:156",
+        launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=None, pairs=stats["pairs"], S=S, bytes=nbytes,
+        site_rel_err=rel_f, cell_rel_err_e=rel_e, rel_e_total=rel_tot)
+    say(f"[time] direct_force: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {entry['bound_ms']:.5f} ms ({entry['bound_by']}; "
+        f"{stats['pairs']} pairs x {K2_PAIR_OPS} FP32 ops, {nbytes} bytes)")
+    return entry
+
+
+def md_path(md, calls, torch, np):
+    """The MdSim path: md.step(0.002, n) for each n in calls, K2 launches
+    counted over exactly those calls; the last call timed."""
+    from molchanica_tpu_torch.ops.direct_force import DirectForce
+
+    dt = 0.002
+    k = md.cfg.neighbor_rebuild_every
+    DirectForce.launches = 0
+    evals0 = md.force_evals
+    for n in calls[:-1]:
+        t0 = time.perf_counter()
+        md.step(dt, n)
+        torch.cuda.synchronize()
+        say(f"[md] warm-up {n} steps in {time.perf_counter() - t0:.1f} s")
+    n = calls[-1]
+    t0 = time.perf_counter()
+    md.step(dt, n)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = DirectForce.launches
+    n_eval = md.force_evals - evals0
+    expected = sum(c + -(-c // k) + 1 for c in calls)
+    ms_step = elapsed / n * 1e3
+    ns_day = n * dt / 1000.0 / elapsed * 86400.0
+    t_final = md.temperature()
+    x = md.state.positions
+    finite = bool(torch.isfinite(x).all())
+    ovf = int(md._rebuild(x, md.state.box)[2])
+    say(f"[md] n={n} ms/step={ms_step:.4f} ns/day={ns_day:.3f} "
+        f"T={t_final:.2f} K E_pot(last)={float(md.state.pe_last):.3f} "
+        f"kcal/mol finite={finite} overflow={ovf} C={md._plan.capacity}")
+    say(f"[md] direct_force launches {launches}, force_evals {n_eval}, "
+        f"expected {expected} (n + ceil(n/{k}) + 1 over calls {calls})")
+    if not finite or not 100.0 < t_final < 600.0:
+        raise SystemExit(f"unstable MdSim run: finite={finite} T={t_final}")
+    if not launches == n_eval == expected:
+        raise SystemExit(f"direct_force launches {launches} / force_evals "
+                         f"{n_eval} != {expected}")
+    return dict(ms_per_step=ms_step, ns_per_day=ns_day,
+                temperature_K=t_final, elapsed_s=elapsed, n_timed=n,
+                launches=launches)
+
+
+def md_engine_parity(build_md, torch):
+    """MdSim.force_fn on the card against the same MdSim on the CPU, on the
+    CPU engine's initial state. Per site the limit is ENGINE_TOL_F of
+    max|F| plus ENGINE_TOL_DIRECT of the site's direct-space scale; every
+    energy term within rel 1e-5, for lj and coulomb of |ref| plus the
+    kernel's |e| sums (MdSim.direct_space_scales): those hold the excluded
+    solute pairs that are subtracted again."""
+    t0 = time.perf_counter()
+    md_g = build_md("cuda")
+    md_c = build_md("cpu")
+    x_c = md_c.state.positions
+    sg, sc = md_g.state, md_c.state
+    fg, (_, tg) = md_g.force_fn(x_c.to(md_g.device), sg.box, sg.couple)
+    fc, (_, tc) = md_c.force_fn(x_c, sc.box, sc.couple)
+    a, e_scale = md_c.direct_space_scales(x_c)
+    err = (fg.cpu() - fc).abs().amax(dim=1)
+    f_max = float(fc.abs().max())
+    tol = ENGINE_TOL_F * f_max + ENGINE_TOL_DIRECT * a
+    worst = int(torch.argmax(err / tol))
+    worst_e, worst_k = 0.0, ""
+    for k in ("bond", "angle", "dihedral", "recip", "lj", "coulomb"):
+        ref = float(tc[k])
+        rel = abs(float(tg[k]) - ref) / (abs(ref) + e_scale.get(k, 0.0))
+        say(f"[md-engine] {k}: card {float(tg[k]):.6f} cpu {ref:.6f} "
+            f"rel {rel:.2e}")
+        if rel > worst_e:
+            worst_e, worst_k = rel, k
+    say(f"[md-engine] card vs CPU on the init state: max|dF|="
+        f"{float(err.max()):.4f} (max|F|={f_max:.2f}); worst site {worst}: "
+        f"|dF|={float(err[worst]):.4f} against limit "
+        f"{float(tol[worst]):.4f} (direct scale {float(a[worst]):.4e}); "
+        f"worst energy term {worst_k} rel {worst_e:.2e}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (bool((err <= tol).all()) and worst_e < 1e-5):
+        raise SystemExit("MdSim engine parity failed")
+
+
 def nvt_hold(sim, n, np):
     """Mean temperature over n more steps, sampled every 200."""
     temps = []
@@ -235,7 +395,7 @@ def nvt_hold(sim, n, np):
         raise SystemExit(f"NVT hold off target: {mean} K")
 
 
-def profile_steps(sim, n, torch, out_dir):
+def profile_steps(sim, n, torch, out_dir, prefix=""):
     """Trace n steps: device busy share, kernel launches per step and the
     kernels by device time (full tables in out_dir/profile.txt if given)."""
     from torch.profiler import ProfilerActivity, profile
@@ -257,14 +417,15 @@ def profile_steps(sim, n, torch, out_dir):
            if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(t for t, _ in dev) / 1e3
     launches = sum(e.count for _, e in dev)
-    say(f"[profile] {n} steps: wall {wall_ms / n:.3f} ms/step, device busy "
-        f"{dev_ms / n:.3f} ms/step ({100.0 * dev_ms / wall_ms:.1f}%), "
+    say(f"[{prefix}profile] {n} steps: wall {wall_ms / n:.3f} ms/step, "
+        f"device busy {dev_ms / n:.3f} ms/step "
+        f"({100.0 * dev_ms / wall_ms:.1f}%), "
         f"{launches / n:.0f} kernels/step")
     for t, e in sorted(dev, key=lambda p: -p[0])[:15]:
-        say(f"[profile] {t / 1e3 / n:9.4f} ms/step {e.count / n:7.1f}/step "
-            f"{e.key[:90]}")
+        say(f"[{prefix}profile] {t / 1e3 / n:9.4f} ms/step "
+            f"{e.count / n:7.1f}/step {e.key[:90]}")
     if out_dir:
-        with open(os.path.join(out_dir, "profile.txt"), "w") as fh:
+        with open(os.path.join(out_dir, f"{prefix}profile.txt"), "w") as fh:
             fh.write(ka.table(sort_by=key, row_limit=80))
             fh.write("\n\n")
             fh.write(ka.table(sort_by="self_cpu_time_total", row_limit=80))
@@ -280,9 +441,15 @@ def main():
     ap.add_argument("--hold", type=int, default=0, metavar="N",
                     help="after the timed run, hold N more steps and check "
                     "their mean temperature (off by default)")
+    ap.add_argument("--md-steps", type=int, default=N_MD_TIMED,
+                    help="timed MdSim steps (default %(default)s)")
+    ap.add_argument("--md-warm", type=int, default=N_MD_WARM,
+                    help="MdSim warm-up steps (default %(default)s)")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
-                    help="after the checks, trace N more steps with "
-                    "torch.profiler")
+                    help="after the checks, trace N more FastSim steps "
+                    "with torch.profiler")
+    ap.add_argument("--md-profile", type=int, default=0, metavar="N",
+                    help="after the checks, trace N more MdSim steps")
     ap.add_argument("--out", metavar="DIR",
                     help="write chip_smoke.json (and profile.txt) here")
     args = ap.parse_args()
@@ -305,7 +472,8 @@ def main():
     from molchanica_tpu_torch import cuda_build
     t0 = time.perf_counter()
     cuda_build.build()
-    say(f"[build] colpair built in {time.perf_counter() - t0:.1f} s")
+    say(f"[build] colpair.cu + direct_force.cu built in "
+        f"{time.perf_counter() - t0:.1f} s")
     for line in cuda_build.build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             say(f"[build] {line.strip()}")
@@ -393,18 +561,51 @@ def main():
     # ---- 6. engine parity ----
     engine_parity(build, torch)
 
-    # ---- 7. results ----
+    # ---- 7. MdSim on the same system ----
+    from molchanica_tpu_torch.md.engine import MdSim
+    md_cfg = cfg.replace(use_pallas=True)
+
+    def build_md(device):
+        return MdSim(asys.topology, md_cfg, d["x"],
+                     box_extent=asys.box_extent, velocities=d["v"],
+                     method="cells_pme", relax=False, device=device)
+
+    t0 = time.perf_counter()
+    md = build_md("cuda")
+    torch.cuda.synchronize()
+    plan = md._plan
+    sa = md._rebuild(md.state.positions, md.state.box)[0]
+    occ = int((sa.view(plan.n_cells, plan.capacity) >= 0).sum(1).max())
+    say(f"[md] MdSim init {time.perf_counter() - t0:.2f} s: nc={plan.nc} "
+        f"C={plan.capacity} n_cells={plan.n_cells} max occupancy={occ} "
+        f"side={plan.cell_side[0]:.4f} pme={md._recip.grid} "
+        f"constraints={md.n_constraints}")
+
+    # ---- 8. K2 parity ----
+    k2 = k2_parity(md, torch)
+
+    # ---- 9. the MdSim path ----
+    md_res = md_path(md, [args.md_warm, args.md_steps], torch, np)
+    k2["launches"] = md_res["launches"]
+    entries.append(k2)
+
+    # ---- 10. MdSim engine parity ----
+    md_engine_parity(build_md, torch)
+
+    # ---- 11. results ----
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     if args.profile:
         profile_steps(sim, args.profile, torch, args.out)
+    if args.md_profile:
+        profile_steps(md, args.md_profile, torch, args.out, "md_")
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
             json.dump(dict(card=card, torch=torch.__version__,
                            cuda=torch.version.cuda, ms_per_step=ms_step,
                            ns_per_day=ns_day, temperature_K=t_final,
                            elapsed_s=elapsed, n_timed=args.steps,
-                           kernels=entries), fh, indent=1)
+                           md=md_res, kernels=entries), fh, indent=1)
     say(json.dumps({"kernels": [
         {k: e[k] for k in ("name", "route", "source", "replaces",
                            "launches", "max_abs_err", "ms", "plain_ms",

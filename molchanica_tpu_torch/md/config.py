@@ -181,9 +181,17 @@ class MdConfig:
     overrides: MdOverrides = field(default_factory=MdOverrides)
     # --- engine settings ---
     dtype: str = "float32"
+    steps_per_chunk: int = 100        # reference scan-chunk length (unused
+                                      # by the port's host loop)
     neighbor_rebuild_every: int = 20  # steps between re-sorts
     pme_grid: Optional[Tuple[int, int, int]] = None  # None = auto from box
     ewald_rtol: float = 1e-5          # erfc(beta*rc) target at the cutoff
+    cell_capacity_factor: float = 1.7 # reference knob; the cell-grid plan
+                                      # sets capacity from occupancy
+    # MdSim's direct space: the cell-grid kernel (ops/direct_force.py) when
+    # True; the other backends ("auto" = clusters, "window") are not ported
+    use_pallas: bool = False
+    direct_backend: str = "auto"
     seed: int = 0
 
     def replace(self, **kw):

@@ -69,3 +69,16 @@ def dihedral_energy(x, box, idx, k, n, phase):
     """Sum_d k_d (1 + cos(n_d phi - phase_d))."""
     phi = dihedral_angle(x, box, idx, valid=(k != 0))
     return torch.sum(k * (1.0 + torch.cos(n * phi - phase)))
+
+
+def bonded_energy(x, box, top, overrides=None):
+    """(total, {"bond", "angle", "dihedral"}); all zero when the overrides
+    disable the bonded terms."""
+    if overrides is not None and overrides.bonded_disabled:
+        z = torch.zeros((), dtype=x.dtype, device=x.device)
+        return z, {"bond": z, "angle": z, "dihedral": z}
+    eb = bond_energy(x, box, top.bond_idx, top.bond_k, top.bond_r0)
+    ea = angle_energy(x, box, top.angle_idx, top.angle_k, top.angle_theta0)
+    ed = dihedral_energy(x, box, top.dihedral_idx, top.dihedral_k,
+                         top.dihedral_n, top.dihedral_phase)
+    return eb + ea + ed, {"bond": eb, "angle": ea, "dihedral": ed}

@@ -196,11 +196,15 @@ def _col_of(u, n):
 
 
 def make_anchor_sort_fn(plan: ColPlan, anchor_ids, sizes, atom_mask_base,
-                        device="cpu"):
+                        device=None):
     """Molecule-anchor column sort: argsort over anchors (one key per water
     block or free atom), then expand each anchor to `size` consecutive
     slots. Returns sort(x_base, box) -> (perm [S] base ids (n_base =
-    dummy), key_sorted [S], col_start [n_cols+1], overflow)."""
+    dummy), key_sorted [S], col_start [n_cols+1], overflow). Its tables
+    live on `device` (None means the CUDA card)."""
+    from ..device import resolve_device
+
+    device = resolve_device(device)
     nx, ny = plan.nx, plan.ny
     S = plan.n_sorted
     n_base = plan.n_base

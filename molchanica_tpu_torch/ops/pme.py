@@ -1,7 +1,10 @@
-"""Ewald splitting helpers (port of the host-side part of
-molchanica_tpu.ops.pme)."""
+"""Ewald splitting helpers and MdSim's reciprocal-space energy (port of
+molchanica_tpu.ops.pme; the order-6 SPME itself is ops/pme3.py)."""
 from __future__ import annotations
 
+import math
+
+import numpy as np
 from scipy.special import erfc as _erfc
 
 
@@ -27,3 +30,32 @@ def good_fft_size(n: int) -> int:
         if m == 1:
             return n
         n += 1
+
+
+def default_grid(box_extent, spacing: float = 1.0):
+    """MdSim's mesh: spacing <= 1 A, at least 16 points, {2,3,5} sizes."""
+    return tuple(good_fft_size(max(16, int(math.ceil(b / spacing))))
+                 for b in np.asarray(box_extent))
+
+
+def make_pme_recip_fn(top, cfg, box_extent, device=None):
+    """recip(x, box, couple) -> E_recip, differentiable in x: order-6 SPME
+    (ops/pme3.py) on cfg.pme_grid or default_grid(box), with the coupled
+    atoms' charges scaled by couple. `device` None means the CUDA card.
+    The mesh shape is `recip.grid`."""
+    from ..device import resolve_device
+    from .pme3 import make_pme3_recip_fn
+
+    dev = resolve_device(device)
+    grid_shape = tuple(cfg.pme_grid or default_grid(box_extent))
+    beta = ewald_beta_for(cfg.coulomb_cutoff, cfg.ewald_rtol)
+    recip3 = make_pme3_recip_fn(grid_shape, beta, device=dev)
+    charges = (top.charges * top.atom_mask).to(dev)
+    cm = top.couple_mask.to(dev)
+
+    def recip(x, box, couple):
+        q_eff = charges * (1.0 - cm * (1.0 - couple))
+        return recip3(x, q_eff, box)
+
+    recip.grid = recip3.K
+    return recip

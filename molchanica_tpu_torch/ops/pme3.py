@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..constants import COULOMB_CONST
+from ..device import resolve_device
 from .pme import good_fft_size
 
 
@@ -92,7 +93,8 @@ class Pme3:
     function tracks the live box."""
 
     def __init__(self, grid_shape, beta, order: int = 6, chunk: int = 32768,
-                 device="cpu"):
+                 device=None):
+        device = resolve_device(device)
         self.K = tuple(int(k) for k in grid_shape)
         self.beta = float(beta)
         self.order = order
@@ -223,7 +225,8 @@ class _Pme3Fn(torch.autograd.Function):
         return e_bar * gx, e_bar * gq, torch.zeros_like(box), None
 
 
-def make_pme3_recip_fn(grid_shape, beta, device="cpu"):
+def make_pme3_recip_fn(grid_shape, beta, device=None):
     """recip(x, q_eff, box) -> E_recip, order 6 with the analytic gradient
-    (the reference's make_pme3_recip_fn(order=6, custom_grad=True))."""
+    (the reference's make_pme3_recip_fn(order=6, custom_grad=True)), on
+    `device` (None means the CUDA card)."""
     return Pme3(grid_shape, beta, order=6, device=device)

@@ -15,6 +15,7 @@ shape: padding rows carry zero force constants and masks.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -90,6 +91,11 @@ class Topology:
     @property
     def n_atoms(self) -> int:
         return self.masses.shape[0]
+
+    def to(self, device) -> "Topology":
+        """A copy with every tensor field on `device`."""
+        return dataclasses.replace(
+            self, **{f: getattr(self, f).to(device) for f in TENSOR_FIELDS})
 
 
 def topology_from_numpy(fields: dict, statics: dict,

@@ -92,7 +92,8 @@ def test_anchor_sort_equal(sim):
     # jitter so keys tie and cross bin edges differently from the build
     xj = xw + torch.tensor(rng.normal(0, 0.3, xw.shape), dtype=torch.float32)
     for xs in (xw, xj):
-        got = T.make_anchor_sort_fn(sim.plan, aid, sizes, mask)(xs, box)
+        got = T.make_anchor_sort_fn(sim.plan, aid, sizes, mask,
+                                    device="cpu")(xs, box)
         ref = J.make_anchor_sort_fn(_jplan(sim.plan), aid, sizes, mask)(
             _j(xs), _j(box))
         for name, a, b in zip(("perm", "keys", "col_start", "overflow"),

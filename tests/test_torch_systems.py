@@ -132,7 +132,8 @@ def test_config_defaults_match():
     j, t = jc.MdConfig(), tc.MdConfig()
     for f in ("temp_target", "coulomb_cutoff", "lj_cutoff", "dtype",
               "neighbor_rebuild_every", "ewald_rtol", "seed",
-              "zero_com_drift", "max_init_relaxation_iters"):
+              "zero_com_drift", "max_init_relaxation_iters", "use_pallas",
+              "direct_backend", "steps_per_chunk", "cell_capacity_factor"):
         assert getattr(t, f) == getattr(j, f), f
     lj, lt = jc.Integrator.langevin_middle(1.0), \
         tc.Integrator.langevin_middle(1.0)
@@ -158,8 +159,9 @@ def test_fast_sim_needs_cuda_unless_cpu_is_asked(systems):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke, import without loading
-    jax, flax or any molchanica_tpu module."""
+    """Every module of the port (MdSim's cell-grid path among them), and
+    chip_smoke, import without loading jax, flax or any molchanica_tpu
+    module."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import molchanica_tpu_torch as p\n"
@@ -168,12 +170,17 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'molchanica_tpu')]\n"
+        "need = ['md.engine', 'md.energy', 'md.constraints', 'md.state', "
+        "'ops.direct_force', 'ops.nonbonded', 'ops.pme', 'cuda_build']\n"
+        "missing = [m for m in need if 'molchanica_tpu_torch.' + m "
+        "not in sys.modules]\n"
         "print(len([m for m in sys.modules "
         "if m.startswith('molchanica_tpu_torch')]))\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        "assert not missing, missing\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
-    assert int(r.stdout.strip().splitlines()[-1]) >= 15
+    assert int(r.stdout.strip().splitlines()[-1]) >= 20

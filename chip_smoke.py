@@ -28,7 +28,20 @@ Phases, each printed on lines of its own:
      n + ceil(n/20) + 1 per call;
  10. MdSim engine parity: force_fn on the card against the same MdSim on
      the CPU, on the initial state;
- 11. the kernel JSON line, the card line, and the final JSON result line.
+ 11. the hydration system: methanol from the committed MolSpec
+     (systems/data/methanol_gaff2.json) as the coupled molecule in a
+     35 A OPC box, in FastSim with run_sol_sim_fast's MdConfig;
+ 12. K1d parity: on its real L and Q tables after the first rebuild,
+     every has_alch colpair instance (L 'full' / Q 'coul' + water filter
+     x force-only / energy) against its plain torch version, at couple
+     0.5 and 0.05;
+ 13. alchemical engine parity at couple 0.5: the card's FastSim against
+     the same engine on the CPU on one state (after a minimize on the
+     card), force-only and energy force functions and dhdl;
+ 14. the TI path: run_sol_sim_fast on the card at the full box and all 13
+     HYDRATION_LAMBDAS windows, shortened (--ti-equil, --ti-prod); K1d
+     launch counts over exactly that call, against its force_evals;
+ 15. the kernel JSON line, the card line, and the final JSON result line.
 An NVT hold (the mean temperature of further FastSim steps near 310 K)
 runs only when --hold N asks for it.
 
@@ -67,6 +80,14 @@ PAIR_OPS = {
     ("lj", False): 20 + 23, ("full", True): 20 + 23 + 38 + 4 + 3,
     ("coul", True): 20 + 38 + 3, ("lj", True): 20 + 23 + 4,
 }
+# the has_alch instances (same counting): the softcore prelude (is_alch,
+# alch, a_lj, soft_c, rsqrt(r2s + soft_c)) 14, Beutler LJ 23 + 7, erfcx
+# Coulomb with the softcore force 38 + 5; never K-poly
+PAIR_OPS_ALCH = {
+    ("full", False): 20 + 14 + 30 + 43, ("coul", False): 20 + 14 + 43,
+    ("full", True): 20 + 14 + 30 + 43 + 4 + 3,
+    ("coul", True): 20 + 14 + 43 + 3,
+}
 # FP32 operations per in-cutoff pair of csrc/direct_force.cu (same
 # counting): geometry and r^2 clamp 10, softcore LJ with the clip 38, A&S
 # Coulomb 30, force accumulation 7
@@ -85,6 +106,25 @@ KERNEL_TOL_F, KERNEL_TOL_E = 1e-5, 1e-5
 # engine card vs CPU, per site: 1e-4 of max|F| (PME, bonded and autograd
 # sums) plus 1e-5 of the site's direct-space scale (colpair_plain's f_abs)
 ENGINE_TOL_F, ENGINE_TOL_DIRECT = 1e-4, 1e-5
+# the hydration phases: reference protocol box and lambda list, windows
+# shortened to N_TI_EQUIL + N_TI_PROD steps with a dH/dlambda sample every
+# TI_DHDL_INTERVAL; K1d held at two couplings where the softcore is large
+TI_SEED = 3
+N_TI_EQUIL = 40
+N_TI_PROD = 60
+TI_DHDL_INTERVAL = 20
+ALCH_COUPLES = (0.5, 0.05)
+# dhdl is a float32 central difference (h = 1e-3): card vs CPU within
+# DHDL_FLOORS x eps32 * sum|terms| / 2h (the CPU tests hold the port to
+# the JAX package within 4; the card sums in other orders, with atomics)
+DHDL_H = 1e-3
+DHDL_FLOORS = 8.0
+# |<dH/dlambda>| per window above this is a blow-up (kcal/mol): a CPU
+# rehearsal of phase 14 (24 A box, 6 A cutoff, same windows) stayed under
+# 30 at every lambda, and so did this phase on an H100 (under 16); the
+# run before the softcore fix (docs/TI_SHOWCASE.json) integrated to +1218
+# kcal/mol
+DHDL_BLOWUP = 500.0
 
 
 def say(*a):
@@ -114,16 +154,21 @@ def cuda_ms(fn, n):
     return a.elapsed_time(b) / n
 
 
-def kernel_parity(sim, torch):
+def kernel_parity(sim, torch, couples=(None,)):
     """Each colpair instance of the path vs colpair_plain on the state's
-    tables. Returns one JSON kernel entry per instance."""
+    tables, at each coupling in `couples` (None: the state's own, for the
+    instances without has_alch); timed at the first. Returns one JSON
+    kernel entry per instance, with the worst errors over `couples`."""
     from molchanica_tpu_torch.ops.colpair import (ICL, colpair_cuda,
                                                   colpair_parity,
                                                   colpair_plain)
 
     st = sim.state
     sp = st.split
-    x_ext = torch.cat([st.x, torch.full((1, 3), 1.0e6, device=st.x.device)])
+    dev = st.x.device
+    x_ext = torch.cat([st.x, torch.full((1, 3), 1.0e6, device=dev)])
+    cpls = [st.couple if c is None else
+            torch.tensor(c, dtype=torch.float32, device=dev) for c in couples]
     entries = []
     for key in ("l", "q"):
         rows = torch.cat([x_ext[sp[f"idx_{key}"]], sp[f"props_{key}"]], 1)
@@ -132,69 +177,87 @@ def kernel_parity(sim, torch):
         S = rows.shape[0]
         for we in (False, True):
             kern = sim._split["kernels"][we][key.upper()]
-            f_k, e_k = colpair_cuda(kern.cfg, rows, pT, wl, nw, st.box,
-                                    kern.params(rows.device))
-            stats = {}
-            f_p, elj_p, ec_p = colpair_plain(rows, pT, wl, nw, st.box,
-                                             kern.cfg, stats=stats)
-            torch.cuda.synchronize()
-            rel_f, rel_e = colpair_parity(f_k, e_k.sum(1), f_p, stats)
-            err = float((f_k - f_p).abs().max())
-            f_max = float(f_p.abs().max())
-            e_kern = float(e_k.sum())
-            e_plain = float(elj_p + ec_p)
-            rel_tot = abs(e_kern - e_plain) / max(abs(e_plain), 1e-30)
-            say(f"[parity] {kern.name} S={S} NC={S // ICL} "
-                f"max_entries={int(nw.max())} pairs={stats['pairs']} "
-                f"max|dF|/max|F|={err / f_max:.3e} (max|dF|={err:.4e}, "
-                f"max|F|={f_max:.4e}) e_kernel={e_kern:.6f} "
-                f"e_plain={e_plain:.6f} rel_e={rel_tot:.3e} "
-                f"(limits {KERNEL_TOL_F_MAX:g}, {KERNEL_TOL_E_TOT:g})")
-            say(f"[parity] {kern.name} per site max|dF|/scale={rel_f:.3e}, "
-                f"per cluster |dE|/scale={rel_e:.3e} (limits "
-                f"{KERNEL_TOL_F:g}, {KERNEL_TOL_E:g})")
-            if not (err / f_max < KERNEL_TOL_F_MAX
-                    and rel_tot < KERNEL_TOL_E_TOT
-                    and rel_f < KERNEL_TOL_F and rel_e < KERNEL_TOL_E):
-                raise SystemExit(f"{kern.name}: kernel and plain disagree")
-            ms = cuda_ms(lambda: kern(rows, pT, wl, nw, st.box, st.couple),
+            worst = dict(err=0.0, rel_f=0.0, rel_e=0.0)
+            for c, cpl in zip(couples, cpls):
+                f_k, e_k = colpair_cuda(kern.cfg, rows, pT, wl, nw, st.box,
+                                        kern.params(dev), cpl)
+                stats = {}
+                f_p, elj_p, ec_p = colpair_plain(rows, pT, wl, nw, st.box,
+                                                 kern.cfg, cpl, stats=stats)
+                torch.cuda.synchronize()
+                rel_f, rel_e = colpair_parity(f_k, e_k.sum(1), f_p, stats)
+                err = float((f_k - f_p).abs().max())
+                f_max = float(f_p.abs().max())
+                e_kern = float(e_k.sum())
+                e_plain = float(elj_p + ec_p)
+                rel_tot = abs(e_kern - e_plain) / max(abs(e_plain), 1e-30)
+                at = "" if c is None else f" couple={c:g}"
+                say(f"[parity] {kern.name}{at} S={S} NC={S // ICL} "
+                    f"max_entries={int(nw.max())} pairs={stats['pairs']} "
+                    f"max|dF|/max|F|={err / f_max:.3e} (max|dF|={err:.4e}, "
+                    f"max|F|={f_max:.4e}) e_kernel={e_kern:.6f} "
+                    f"e_plain={e_plain:.6f} rel_e={rel_tot:.3e} "
+                    f"(limits {KERNEL_TOL_F_MAX:g}, {KERNEL_TOL_E_TOT:g})")
+                say(f"[parity] {kern.name}{at} per site max|dF|/scale="
+                    f"{rel_f:.3e}, per cluster |dE|/scale={rel_e:.3e} "
+                    f"(limits {KERNEL_TOL_F:g}, {KERNEL_TOL_E:g})")
+                if not (err / f_max < KERNEL_TOL_F_MAX
+                        and rel_tot < KERNEL_TOL_E_TOT
+                        and rel_f < KERNEL_TOL_F and rel_e < KERNEL_TOL_E):
+                    raise SystemExit(f"{kern.name}{at}: kernel and plain "
+                                     "disagree")
+                worst = dict(err=max(worst["err"], err),
+                             rel_f=max(worst["rel_f"], rel_f),
+                             rel_e=max(worst["rel_e"], rel_e))
+            ms = cuda_ms(lambda: kern(rows, pT, wl, nw, st.box, cpls[0]),
                          50)
             plain_ms = cuda_ms(lambda: colpair_plain(
-                rows, pT, wl, nw, st.box, kern.cfg), 3)
-            ops = stats["pairs"] * PAIR_OPS[(kern.cfg.mode, we)]
+                rows, pT, wl, nw, st.box, kern.cfg, cpls[0]), 3)
+            table = PAIR_OPS_ALCH if kern.cfg.has_alch else PAIR_OPS
+            ops = stats["pairs"] * table[(kern.cfg.mode, we)]
             nbytes = (rows.numel() + pT.numel() + wl.numel() + nw.numel()
-                      + 3 + 64) * 4 + (S * 3 + (S // ICL) * 2) * 4
+                      + 3 + 64 + int(kern.cfg.has_alch)) * 4 \
+                + (S * 3 + (S // ICL) * 2) * 4
             t_ops = ops / PEAK_FP32 * 1e3
             t_bytes = nbytes / PEAK_BYTES * 1e3
             entries.append(dict(
                 name=kern.name, route="cuda",
                 source="molchanica_tpu_torch/csrc/colpair.cu",
                 replaces="molchanica_tpu/ops/pallas/colpair.py:810",
-                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_ops, t_bytes),
+                launches=0, max_abs_err=worst["err"], ms=ms,
+                plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 library_ms=None, pairs=stats["pairs"], S=S,
-                site_rel_err=rel_f, cluster_rel_err_e=rel_e))
+                site_rel_err=worst["rel_f"],
+                cluster_rel_err_e=worst["rel_e"]))
             say(f"[time] {kern.name}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.3f} ms, bound {max(t_ops, t_bytes):.5f} ms "
                 f"({entries[-1]['bound_by']})")
     return entries
 
 
-def engine_parity(build, torch):
+def engine_parity(build, torch, lam=None, tag="engine"):
     """The card's force against the CPU engine's on the same state, for the
-    force-only function (the K-poly kernels of every step) and the one with
-    energies (whose terms must agree to rel 1e-5 too). Per site the limit
-    is ENGINE_TOL_F of max|F| plus ENGINE_TOL_DIRECT of the site's
-    direct-space scale (the plain kernels' f_abs, owned and spread like the
-    force): excluded solute pairs enter the kernel at ~1e5 kcal/mol/A and
-    are subtracted again, which leaves a float32 floor at those sites only
-    (see tests/test_torch_fast_engine.py)."""
+    force-only function (the K-poly kernels of every step; with a coupled
+    solute, the erfcx has_alch kernels) and the one with energies (whose
+    terms must agree to rel 1e-5 too). Per site the limit is ENGINE_TOL_F
+    of max|F| plus ENGINE_TOL_DIRECT of the site's direct-space scale (the
+    plain kernels' f_abs, owned and spread like the force): excluded solute
+    pairs enter the kernel at ~1e5 kcal/mol/A and are subtracted again,
+    which leaves a float32 floor at those sites only (see
+    tests/test_torch_fast_engine.py). With `lam`, both engines are set to
+    that lambda window and dhdl must agree within DHDL_FLOORS of its
+    float32 floor. Returns the card's dhdl (or None)."""
+    import numpy as np
+
     from molchanica_tpu_torch.ops.colpair import colpair_plain
 
     t0 = time.perf_counter()
     sim = build("cuda")
     cpu = build("cpu")
+    if lam is not None:
+        sim.configure_alchemical_window(lam)
+        cpu.configure_alchemical_window(lam)
     st_c = cpu.state
     st_g = sim.state.replace(x=st_c.x.to(sim.device))
     if not torch.equal(sim.state.perm.cpu(), st_c.perm):
@@ -210,7 +273,7 @@ def engine_parity(build, torch):
             colpair_plain(rows, rows.T.contiguous(), sp[f"wl_{key}"],
                           sp[f"nw_{key}"], st_c.box,
                           cpu._split["kernels"][False][key.upper()].cfg,
-                          stats=stats)
+                          st_c.couple, stats=stats)
             f_abs.append(stats["f_abs"])
         comb = torch.cat([*f_abs, torch.zeros(1)])
         a = (comb[sp["gsrc_l"]] + comb[sp["gsrc_q"]])[:, None].repeat(1, 3)
@@ -223,19 +286,37 @@ def engine_parity(build, torch):
             tol = ENGINE_TOL_F * f_max + ENGINE_TOL_DIRECT * a
             worst = int(torch.argmax(err / tol))
             terms = ("bond", "angle", "dihedral", "recip") + (
-                ("lj", "coulomb") if we else ())
+                ("lj", "coulomb") if we else ()) + (
+                ("comp",) if "comp" in tc else ())
             worst_e = max(abs(float(tg[k]) - float(tc[k]))
-                          / abs(float(tc[k])) for k in terms)
-            say(f"[engine] {'energy' if we else 'force-only'}: card vs CPU "
-                f"on the init state: max|dF|={float(err.max()):.4f} "
+                          / max(abs(float(tc[k])), 1e-30) for k in terms
+                          if float(tc[k]) != 0.0 or float(tg[k]) != 0.0)
+            say(f"[{tag}] {'energy' if we else 'force-only'}: card vs CPU "
+                f"on one state: max|dF|={float(err.max()):.4f} "
                 f"(max|F|={f_max:.2f}); worst site {worst}: |dF|="
                 f"{float(err[worst]):.4f} against limit "
                 f"{float(tol[worst]):.4f} (direct scale "
                 f"{float(a[worst]):.4e}); worst energy term rel "
                 f"{worst_e:.2e}")
             if not (bool((err <= tol).all()) and worst_e < 1e-5):
-                raise SystemExit("engine parity failed")
-    say(f"[engine] CPU engine and checks {time.perf_counter() - t0:.1f} s")
+                raise SystemExit(f"{tag} parity failed")
+        d_g = d_c = None
+        if lam is not None:
+            sim.state = st_g
+            d_g, d_c = sim.dhdl(), cpu.dhdl()
+            floor = float(np.finfo(np.float32).eps) * sum(
+                abs(float(tc[k])) for k in ("bond", "angle", "dihedral",
+                                            "recip", "lj", "coulomb")) \
+                / (2.0 * DHDL_H)
+            say(f"[{tag}] dhdl at lambda={lam:g}: card {d_g:.4f} CPU "
+                f"{d_c:.4f} kcal/mol, |diff| {abs(d_g - d_c):.4f} against "
+                f"{DHDL_FLOORS:g} x float32 floor {floor:.4f}; comp term "
+                f"card {float(tg['comp']):.6f} CPU {float(tc['comp']):.6f}")
+            if not (np.isfinite(d_g)
+                    and abs(d_g - d_c) <= DHDL_FLOORS * floor):
+                raise SystemExit(f"{tag}: dhdl parity failed")
+    say(f"[{tag}] CPU engine and checks {time.perf_counter() - t0:.1f} s")
+    return d_g
 
 
 def k2_parity(md, torch):
@@ -382,6 +463,98 @@ def md_engine_parity(build_md, torch):
         raise SystemExit("MdSim engine parity failed")
 
 
+def hydration_system(torch, np):
+    """Phase 11: methanol as the coupled molecule in the reference
+    protocol's 35 A OPC box, with run_sol_sim_fast's MdConfig; the card's
+    FastSim on it (velocities from the engine's seeded generator)."""
+    from molchanica_tpu_torch.md.alchemical import HYDRATION_BOX_SIDE
+    from molchanica_tpu_torch.md.fast_engine import FastSim
+    from molchanica_tpu_torch.molecules.spec_json import methanol
+    from molchanica_tpu_torch.properties.water_sol import hydration_setup
+
+    t0 = time.perf_counter()
+    asys, cfg = hydration_setup(methanol(), HYDRATION_BOX_SIDE,
+                                seed=TI_SEED)
+    t1 = time.perf_counter()
+    sim = FastSim(asys.topology, cfg, asys.positions,
+                  box_extent=asys.box_extent, device="cuda")
+    torch.cuda.synchronize()
+    sp = sim._split
+    say(f"[hyd] methanol in a {HYDRATION_BOX_SIDE:g} A OPC box: "
+        f"{asys.topology.n_atoms_real} sites ({asys.n_waters} waters), "
+        f"{sim.n_base} padded, built in {t1 - t0:.1f} s; FastSim init "
+        f"{time.perf_counter() - t1:.1f} s: S={sim.S} S_L={sp['S_L']} "
+        f"S_Q={sp['S_Q']} cols={sim.plan.nx}x{sim.plan.ny} "
+        f"pme={tuple(sim._recip.K)} coupled={int(asys.topology.couple_mask.sum())} "
+        f"intramol pairs={int(sim._im_mask.sum())} "
+        f"E_pot(init)={float(sim.state.pe_last):.3f} kcal/mol")
+    if not sim._has_alch:
+        raise SystemExit("hydration system: no coupled atoms")
+    return asys, cfg, sim
+
+
+def ti_path(n_equil, n_prod, torch, np):
+    """Phase 14: run_sol_sim_fast(methanol) on the card at the full box and
+    lambda list; K1d launches counted over exactly that call. Returns
+    (summary dict, launch counts)."""
+    from molchanica_tpu_torch.md.alchemical import HYDRATION_LAMBDAS
+    from molchanica_tpu_torch.molecules.spec_json import methanol
+    from molchanica_tpu_torch.ops.colpair import ColpairDirect
+    from molchanica_tpu_torch.properties import run_sol_sim_fast
+
+    ColpairDirect.launches.clear()
+    t0 = time.perf_counter()
+    props = run_sol_sim_fast(methanol(), equil_steps=n_equil,
+                             prod_steps=n_prod,
+                             dhdl_interval=TI_DHDL_INTERVAL, seed=TI_SEED,
+                             device="cuda")
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = dict(ColpairDirect.launches)
+    rm = props.run_metrics
+    n_eval = rm["force_evals"]
+    n_samples = -(-n_prod // TI_DHDL_INTERVAL)
+    n_win = len(HYDRATION_LAMBDAS)
+    # init 1, minimize(300) 300 + 15, warm-up 400, window steps, 2 per dhdl
+    expected = 1 + 315 + 400 + n_win * (n_equil + n_prod + 2 * n_samples)
+    ms_step = rm["window_step_s"] / rm["window_steps"] * 1e3
+    for w in props.windows:
+        say(f"[ti] lambda={w.lam:.2f} <dH/dl>={w.mean:10.4f} kcal/mol "
+            f"samples={np.array2string(w.dhdl_samples, precision=3)}")
+    say(f"[ti] dG_hydration={props.dg_hydration_kcal:.4f} kcal/mol "
+        f"SEM={props.dg_sem_kcal:.4f} (not converged: {n_prod} production "
+        f"steps per window) contacts={props.mean_n_water_contacts:.2f} "
+        f"h_bonds={props.mean_n_h_bonds:.2f} "
+        f"coupled <dH/dl>={props.mean_coupled_interaction_kcal:.4f}")
+    say(f"[ti] {n_win} windows x ({n_equil} + {n_prod}) steps: "
+        f"{ms_step:.4f} ms/step over {rm['window_steps']} window steps; "
+        f"T={rm['temperature_K']:.2f} K after the last window; the call "
+        f"took {elapsed:.1f} s")
+    total = sum(counts.values())
+    say(f"[ti] colpair launches {total} (expected 2 x {n_eval} force "
+        f"evaluations; {expected} evaluations without replans): {counts}")
+    bad = [w.lam for w in props.windows
+           if len(w.dhdl_samples) != n_samples
+           or not np.isfinite(w.dhdl_samples).all()
+           or not abs(w.mean) < DHDL_BLOWUP]
+    if bad or len(props.windows) != n_win:
+        raise SystemExit(f"TI path: windows {bad} lack {n_samples} finite "
+                         f"samples or exceed |<dH/dl>| < {DHDL_BLOWUP:g}")
+    if not np.isfinite(props.dg_hydration_kcal):
+        raise SystemExit("TI path: non-finite dG")
+    if not 100.0 < rm["temperature_K"] < 600.0:
+        raise SystemExit(f"TI path: T={rm['temperature_K']} K")
+    alch = [k for k in counts if "_alch_" in k]
+    if total != 2 * n_eval or len(alch) != len(counts) or n_eval < expected:
+        raise SystemExit(f"TI path: launches {counts} != 2 x {n_eval}")
+    return dict(ms_per_step=ms_step, elapsed_s=elapsed,
+                temperature_K=rm["temperature_K"],
+                dg_hydration_kcal=props.dg_hydration_kcal,
+                dg_sem_kcal=props.dg_sem_kcal, force_evals=n_eval,
+                windows=[dict(lam=w.lam, samples=w.dhdl_samples.tolist())
+                         for w in props.windows]), counts
+
+
 def nvt_hold(sim, n, np):
     """Mean temperature over n more steps, sampled every 200."""
     temps = []
@@ -445,6 +618,12 @@ def main():
                     help="timed MdSim steps (default %(default)s)")
     ap.add_argument("--md-warm", type=int, default=N_MD_WARM,
                     help="MdSim warm-up steps (default %(default)s)")
+    ap.add_argument("--ti-equil", type=int, default=N_TI_EQUIL,
+                    help="equilibration steps per lambda window "
+                    "(default %(default)s)")
+    ap.add_argument("--ti-prod", type=int, default=N_TI_PROD,
+                    help="production steps per lambda window "
+                    "(default %(default)s)")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="after the checks, trace N more FastSim steps "
                     "with torch.profiler")
@@ -592,7 +771,41 @@ def main():
     # ---- 10. MdSim engine parity ----
     md_engine_parity(build_md, torch)
 
-    # ---- 11. results ----
+    # ---- 11. the hydration system ----
+    asys_h, cfg_h, sim_h = hydration_system(torch, np)
+
+    # ---- 12. K1d parity ----
+    alch_entries = kernel_parity(sim_h, torch, couples=ALCH_COUPLES)
+
+    # ---- 13. alchemical engine parity ----
+    t0 = time.perf_counter()
+    e_min = sim_h.minimize(cfg_h.neighbor_rebuild_every)
+    torch.cuda.synchronize()
+    say(f"[alch-engine] minimize({cfg_h.neighbor_rebuild_every}) on the "
+        f"card: E_pot {e_min:.3f} kcal/mol before the last move, "
+        f"{time.perf_counter() - t0:.1f} s")
+    x_rel = sim_h.positions_unsorted()
+    v_zero = np.zeros_like(x_rel)
+
+    def build_h(device):
+        return FastSim(asys_h.topology, cfg_h, x_rel,
+                       box_extent=asys_h.box_extent, velocities=v_zero,
+                       device=device)
+
+    engine_parity(build_h, torch, lam=1.0 - ALCH_COUPLES[0],
+                  tag="alch-engine")
+    del sim_h
+
+    # ---- 14. the TI path ----
+    ti, ti_counts = ti_path(args.ti_equil, args.ti_prod, torch, np)
+    for e in alch_entries:
+        e["launches"] = ti_counts.get(e["name"], 0)
+    if any(e["launches"] == 0 for e in alch_entries):
+        raise SystemExit(f"TI path: a K1d instance never launched: "
+                         f"{ti_counts}")
+    entries[4:4] = alch_entries
+
+    # ---- 15. results ----
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     if args.profile:
@@ -605,7 +818,8 @@ def main():
                            cuda=torch.version.cuda, ms_per_step=ms_step,
                            ns_per_day=ns_day, temperature_K=t_final,
                            elapsed_s=elapsed, n_timed=args.steps,
-                           md=md_res, kernels=entries), fh, indent=1)
+                           md=md_res, ti=ti, kernels=entries), fh,
+                      indent=1)
     say(json.dumps({"kernels": [
         {k: e[k] for k in ("name", "route", "source", "replaces",
                            "launches", "max_abs_err", "ms", "plain_ms",

@@ -5,8 +5,11 @@
 // (pair math _pair_tile), built by make_colpair_direct_fn, in its
 // triangular per-slice-table instances: modes lj / full / coul, force-only
 // (K-polynomial Coulomb) or with energies (erfcx Coulomb), with or without
-// the species-split water filter. The plain torch version of the same
-// function is ops/colpair.py::colpair_plain.
+// the species-split water filter, and the has_alch instances (ALCH: the
+// softcore branch of _pair_tile for pairs of the coupled molecule with the
+// rest, Beutler LJ and r^2-softcore Coulomb, erfcx force, never K-poly).
+// The plain torch version of the same function is
+// ops/colpair.py::colpair_plain.
 //
 // What bounds it on an H100: the FP32 pair math. Per in-cutoff pair it
 // spends ~50-80 FP32 operations (rsqrt, a degree-12 Horner, the LJ clamp)
@@ -37,8 +40,15 @@
 //   box  [3] f32 box extents
 //   prm  [64] f32: rc2, beta, beta/sqrt(pi), 2*beta/xmax (K-poly), water
 //        group-id range lo/hi, #erfcx coeffs, #K-poly coeffs, the C1 clamp
-//        constants (S2_LO, S2_HI, S2_W, 0.5/S2_W, 1/S2_W), R2_MIN;
-//        [16, 40) erfcx coefficients, [40, 64) K-poly coefficients
+//        constants (S2_LO, S2_HI, S2_W, 0.5/S2_W, 1/S2_W), R2_MIN, the
+//        softcore SC_ALPHA and SC_SIG2_MIN; [16, 40) erfcx coefficients,
+//        [40, 64) K-poly coefficients
+//   cpl  [1] f32 couple (ALCH only): read from device memory, because it
+//        changes per lambda window and is shifted by +-h inside dH/dlambda
+//
+// ALCH keeps the plain version's op order where rounding could part the
+// two: soft_c and r2s + soft_c without contraction, 1/(a s6 + 1) as an
+// IEEE division (no --use_fast_math anywhere).
 //   f    [S, 3] f32 out, zeroed by the caller
 //   e    [NC, 2] f32 out: per-cluster LJ and Coulomb energies
 #include <cuda_runtime.h>
@@ -52,16 +62,17 @@ constexpr int MODE_FULL = 1;
 constexpr int MODE_COUL = 2;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
-template <int MODE, bool WANT_E, bool WFILT>
+template <int MODE, bool WANT_E, bool WFILT, bool ALCH>
 __global__ void __launch_bounds__(LANES)
 colpair_kernel(const int* __restrict__ wl, int wl_w,
                const int* __restrict__ nw, const float* __restrict__ rows,
                const float* __restrict__ pT, int S,
                const float* __restrict__ box, const float* __restrict__ prm,
-               float* __restrict__ f, float* __restrict__ e_out) {
-  constexpr bool KPOLY = !WANT_E && MODE != MODE_LJ;
+               const float* __restrict__ cpl, float* __restrict__ f,
+               float* __restrict__ e_out) {
+  constexpr bool KPOLY = !WANT_E && MODE != MODE_LJ && !ALCH;
   __shared__ float s_x[ICL], s_y[ICL], s_z[ICL], s_q[ICL], s_sh[ICL],
-      s_se[ICL], s_g[ICL];
+      s_se[ICL], s_g[ICL], s_cm[ICL];
   __shared__ float s_f[3][ICL];
   __shared__ float s_c[48];
   __shared__ float s_e[2];
@@ -79,6 +90,7 @@ colpair_kernel(const int* __restrict__ wl, int wl_w,
     s_q[t] = r[3];
     s_sh[t] = r[4];
     s_se[t] = r[5];
+    s_cm[t] = r[6];
     s_g[t] = r[7];
     s_f[0][t] = 0.f;
     s_f[1][t] = 0.f;
@@ -91,6 +103,8 @@ colpair_kernel(const int* __restrict__ wl, int wl_w,
   const int n_ex = (int)prm[6], n_kp = (int)prm[7];
   const float s2_lo = prm[8], s2_hi = prm[9], s2_w = prm[10];
   const float s2_half_inv_w = prm[11], s2_inv_w = prm[12], r2_min = prm[13];
+  const float sc_alpha = prm[14], sc_sig2_min = prm[15];
+  const float omc = ALCH ? 1.f - cpl[0] : 0.f;   // 1 - couple
   const float lx = box[0], ly = box[1], lz = box[2];
   __syncthreads();
 
@@ -111,7 +125,7 @@ colpair_kernel(const int* __restrict__ wl, int wl_w,
     const bool own = (lo < cl_base + ICL) && (hi > cl_base);
     const bool in_run = gid >= lo && gid < hi && gid < S;
     float jx = 0.f, jy = 0.f, jz = 0.f, jq = 0.f, jsh = 0.f, jse = 0.f;
-    float gj = 0.f;
+    float gj = 0.f, jcm = 0.f;
     if (in_run) {
       jx = pT[gid] + shx;
       jy = pT[S + gid] + shy;
@@ -119,6 +133,7 @@ colpair_kernel(const int* __restrict__ wl, int wl_w,
       jq = pT[3 * S + gid];
       jsh = pT[4 * S + gid];
       jse = pT[5 * S + gid];
+      if (ALCH) jcm = pT[6 * S + gid];
       gj = pT[7 * S + gid];
     }
     const bool is_wj = WFILT && gj >= wlo && gj < whi;
@@ -140,19 +155,44 @@ colpair_kernel(const int* __restrict__ wl, int wl_w,
         const float inv_r = rsqrtf(r2s);
         const float inv_r2 = inv_r * inv_r;
         float dlj = 0.f, dc = 0.f;
+        // softcore scales: alch = 1 - is_alch (1 - couple) per pair; the
+        // sigma lanes are read in 'coul' mode too (SC_SIG2_MIN floors them)
+        float alch = 1.f, a_lj = 0.f, inv_rc = inv_r;
+        if (ALCH) {
+          const float ci = s_cm[i];
+          const float is_alch =
+              __fsub_rn(__fadd_rn(ci, jcm), __fmul_rn(__fmul_rn(2.f, ci), jcm));
+          alch = __fsub_rn(1.f, __fmul_rn(is_alch, omc));
+          a_lj = __fmul_rn(sc_alpha, __fsub_rn(1.f, alch));
+          const float sigsc = s_sh[i] + jsh;
+          const float soft_c =
+              __fmul_rn(fmaxf(__fmul_rn(sigsc, sigsc), sc_sig2_min), a_lj);
+          inv_rc = rsqrtf(__fadd_rn(r2s, soft_c));
+        }
         if (MODE != MODE_COUL) {
           const float sig = s_sh[i] + jsh;        // inputs are sigma/2
-          const float eps4 = s_se[i] * jse;       // inputs are 2 sqrt(eps)
+          float eps4 = s_se[i] * jse;             // inputs are 2 sqrt(eps)
+          if (ALCH) eps4 = eps4 * alch;
           const float s2_raw = sig * sig * inv_r2;
           const float u = fminf(fmaxf(s2_raw - s2_lo, 0.f), s2_w);
           const float s2 = fminf(s2_raw, s2_hi) - u * u * s2_half_inv_w;
           const float gp = 1.f - u * s2_inv_w;
-          const float s6 = s2 * s2 * s2;
-          dlj = eps4 * inv_r2 * (gp * s2_raw) * (s2 * s2) * (3.f - 6.f * s6);
+          float s6 = s2 * s2 * s2;
+          if (ALCH) {
+            // Beutler: V = eps4 (inv^2 - inv), inv = s6 / (a s6 + 1)
+            const float invd =
+                __fdiv_rn(1.f, __fadd_rn(__fmul_rn(a_lj, s6), 1.f));
+            s6 = s6 * invd;
+            dlj = eps4 * inv_r2 * (gp * s2_raw) * (s2 * s2) * (invd * invd) *
+                  (3.f - 6.f * s6);
+          } else {
+            dlj = eps4 * inv_r2 * (gp * s2_raw) * (s2 * s2) * (3.f - 6.f * s6);
+          }
           if (WANT_E) elj_acc += eps4 * (s6 * s6 - s6);
         }
         if (MODE != MODE_LJ) {
-          const float kqq = s_q[i] * jq;          // inputs are q sqrt(kC)
+          float kqq = s_q[i] * jq;                // inputs are q sqrt(kC)
+          if (ALCH) kqq = kqq * alch;
           if (KPOLY) {
             const float tt = (r2s * inv_r) * kscale - 1.f;
             float kk = s_c[24 + n_kp - 1];
@@ -164,8 +204,14 @@ colpair_kernel(const int* __restrict__ wl, int wl_w,
             float g = s_c[n_ex - 1];
             for (int m = n_ex - 2; m >= 0; --m) g = g * x + s_c[m];
             const float erfc_v = g * ex;
-            dc = -kqq * inv_r2 * (0.5f * erfc_v * inv_r + c_ex * ex);
-            if (WANT_E) ec_acc += kqq * erfc_v * inv_r;
+            if (ALCH) {
+              // d/dr2 of erfc(beta r) / r_sc, r_sc^2 = r^2 + soft_c
+              dc = -kqq * (c_ex * ex * inv_r * inv_rc +
+                           0.5f * erfc_v * inv_rc * inv_rc * inv_rc);
+            } else {
+              dc = -kqq * inv_r2 * (0.5f * erfc_v * inv_r + c_ex * ex);
+            }
+            if (WANT_E) ec_acc += kqq * erfc_v * inv_rc;
           }
         }
         c2 = 2.f * (dlj + dc);
@@ -221,61 +267,68 @@ colpair_kernel(const int* __restrict__ wl, int wl_w,
   }
 }
 
-template <int MODE, bool WANT_E, bool WFILT>
-void launch(int nc, int wl_w, int S, const void* wl, const void* nw,
-            const void* rows, const void* pT, const void* box,
-            const void* prm, void* f, void* e, cudaStream_t st) {
-  colpair_kernel<MODE, WANT_E, WFILT><<<nc, LANES, 0, st>>>(
-      (const int*)wl, wl_w, (const int*)nw, (const float*)rows,
-      (const float*)pT, S, (const float*)box, (const float*)prm, (float*)f,
-      (float*)e);
+struct Args {
+  int nc, wl_w, S;
+  const void *wl, *nw, *rows, *pT, *box, *prm, *cpl;
+  void *f, *e;
+  cudaStream_t st;
+};
+
+template <int MODE, bool WANT_E, bool WFILT, bool ALCH>
+void launch(const Args& a) {
+  colpair_kernel<MODE, WANT_E, WFILT, ALCH><<<a.nc, LANES, 0, a.st>>>(
+      (const int*)a.wl, a.wl_w, (const int*)a.nw, (const float*)a.rows,
+      (const float*)a.pT, a.S, (const float*)a.box, (const float*)a.prm,
+      (const float*)a.cpl, (float*)a.f, (float*)a.e);
 }
 
-template <int MODE>
-void launch_mode(int want_energy, int water_filter, int nc, int wl_w, int S,
-                 const void* wl, const void* nw, const void* rows,
-                 const void* pT, const void* box, const void* prm, void* f,
-                 void* e, cudaStream_t st) {
+template <int MODE, bool ALCH>
+void launch_flags(int want_energy, int water_filter, const Args& a) {
   if (want_energy) {
     if (water_filter)
-      launch<MODE, true, true>(nc, wl_w, S, wl, nw, rows, pT, box, prm, f, e,
-                               st);
+      launch<MODE, true, true, ALCH>(a);
     else
-      launch<MODE, true, false>(nc, wl_w, S, wl, nw, rows, pT, box, prm, f,
-                                e, st);
+      launch<MODE, true, false, ALCH>(a);
   } else {
     if (water_filter)
-      launch<MODE, false, true>(nc, wl_w, S, wl, nw, rows, pT, box, prm, f,
-                                e, st);
+      launch<MODE, false, true, ALCH>(a);
     else
-      launch<MODE, false, false>(nc, wl_w, S, wl, nw, rows, pT, box, prm, f,
-                                 e, st);
+      launch<MODE, false, false, ALCH>(a);
   }
 }
 
 }  // namespace
 
 // Launches on `stream`, allocates nothing, returns cudaGetLastError().
+// alch selects the has_alch instances (modes full and coul only; `cpl`
+// points at the couple scalar and is not read otherwise).
 extern "C" int colpair_launch(int mode, int want_energy, int water_filter,
-                              int nc, int wl_w, int S, const void* wl,
-                              const void* nw, const void* rows,
-                              const void* pT, const void* box,
-                              const void* prm, void* f, void* e,
+                              int alch, int nc, int wl_w, int S,
+                              const void* wl, const void* nw,
+                              const void* rows, const void* pT,
+                              const void* box, const void* prm,
+                              const void* cpl, void* f, void* e,
                               void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+  const Args a{nc, wl_w, S, wl, nw, rows, pT, box, prm, cpl, f, e,
+               (cudaStream_t)stream};
   if (nc <= 0) return (int)cudaGetLastError();
+  if (alch && cpl == nullptr) return (int)cudaErrorInvalidValue;
   switch (mode) {
     case MODE_LJ:
-      launch_mode<MODE_LJ>(want_energy, water_filter, nc, wl_w, S, wl, nw,
-                           rows, pT, box, prm, f, e, st);
+      if (alch) return (int)cudaErrorInvalidValue;
+      launch_flags<MODE_LJ, false>(want_energy, water_filter, a);
       break;
     case MODE_FULL:
-      launch_mode<MODE_FULL>(want_energy, water_filter, nc, wl_w, S, wl, nw,
-                             rows, pT, box, prm, f, e, st);
+      if (alch)
+        launch_flags<MODE_FULL, true>(want_energy, water_filter, a);
+      else
+        launch_flags<MODE_FULL, false>(want_energy, water_filter, a);
       break;
     case MODE_COUL:
-      launch_mode<MODE_COUL>(want_energy, water_filter, nc, wl_w, S, wl, nw,
-                             rows, pT, box, prm, f, e, st);
+      if (alch)
+        launch_flags<MODE_COUL, true>(want_energy, water_filter, a);
+      else
+        launch_flags<MODE_COUL, false>(want_energy, water_filter, a);
       break;
     default:
       return (int)cudaErrorInvalidValue;

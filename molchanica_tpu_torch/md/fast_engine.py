@@ -9,7 +9,11 @@ The dynamic state lives in column-sorted slot order (ops/colpair.py):
                 subtraction -> Langevin-middle / Verlet -> SETTLE + H-SHAKE
 
 A period is one Python loop over k = neighbor_rebuild_every steps on
-torch tensors. With a rigid multi-site water the direct sum runs as two
+torch tensors. A coupled solute (topology couple_mask) runs the has_alch
+colpair kernels at the state's `couple`; `configure_alchemical_window`
+sets it and `dhdl` differentiates the energy in it. `minimize` is the
+capped steepest-descent clash relaxation that init runs when no
+velocities are given. With a rigid multi-site water the direct sum runs as two
 triangular kernels over two overlapping subsets (the species split, see
 __init__). Hot periods apply the reciprocal-space force as an r-RESPA
 impulse every second step. Index arrays that the reference reads at a pad
@@ -33,6 +37,7 @@ from ..ops.bonded import angle_energy, bond_energy, dihedral_energy
 from ..ops.colpair import (ICL, PER_SLICE_K, R2_MIN, ZBITS, ColpairDirect,
                            make_anchor_sort_fn, make_window_fn,
                            pairlist_colpair_energy, plan_columns)
+from ..ops.nonbonded import intramol_pairs_np
 from ..ops.pbc import minimum_image
 from ..ops.pme import ewald_beta_for
 from ..ops.pme3 import default_grid6, make_pme3_recip_fn
@@ -103,6 +108,7 @@ class FastState:
     dihedral_idx: torch.Tensor
     excl_idx: torch.Tensor
     p14_idx: torch.Tensor
+    intra_idx: torch.Tensor  # [P, 2] coupled-molecule internal pairs
     hc_idx: torch.Tensor     # [C, 4] heavy + 3 H; pads at S (tables)
     # per-slot ownership tables, rebuilt with the sort:
     w_of: torch.Tensor       # water row owning this slot (NW = none)
@@ -158,10 +164,7 @@ class FastSim:
         charges = _np(top.charges)
         atom_mask = _np(top.atom_mask)
         couple_mask = _np(top.couple_mask)
-        if couple_mask.sum() > 0:
-            raise NotImplementedError(
-                "alchemical FastSim needs the has_alch colpair kernel, "
-                "which is not ported yet")
+        self._has_alch = has_alch = bool(couple_mask.sum() > 0)
         box_np = np.asarray(box_extent, np.float64)
         rc = float(max(cfg.lj_cutoff, cfg.coulomb_cutoff))
         self.beta = float(ewald_beta_for(cfg.coulomb_cutoff, cfg.ewald_rtol))
@@ -304,10 +307,17 @@ class FastSim:
             exm_np = exm_np[keep] * (~in_w[keep])
             self._wq = [float(v) for v in
                         charges[self._ws:self._ws + self._wstride]]
+            if (couple_mask[lo:hi] > 0).any():
+                raise ValueError(
+                    "alchemically coupled waters are unsupported by FastSim")
         else:
             self._wq = []
         self._excl_idx_base = T(excl_np, **i64)
         self._excl_mask = T(exm_np)
+        # couple-intramol=no compensation pairs of the coupled molecule
+        im_idx, im_mask = intramol_pairs_np(top)
+        self._im_idx_base = T(im_idx, **i64)
+        self._im_mask = T(im_mask)
 
         # PME: order-6 splines on a ~1.3 A mesh, matmul DFT, analytic
         # gradient (the box gradient is zero: FastSim never needs it)
@@ -318,7 +328,8 @@ class FastSim:
         self._psk = psk
         # the monolithic triangular kernel: the direct sum when the species
         # split does not apply (no water, or no LJ/charge role split)
-        self._direct = {we: ColpairDirect(self.plan, want_energy=we)
+        self._direct = {we: ColpairDirect(self.plan, want_energy=we,
+                                          has_alch=has_alch)
                         for we in (True, False)}
 
         # ---- species-split direct path ----
@@ -367,9 +378,10 @@ class FastSim:
                          if has_solute else None)
                 mode_L = "full" if has_solute else "lj"
                 kernels = {we: dict(
-                    L=ColpairDirect(plan_L, want_energy=we, mode=mode_L),
+                    L=ColpairDirect(plan_L, want_energy=we, mode=mode_L,
+                                    has_alch=has_alch),
                     Q=ColpairDirect(plan_Q, want_energy=we, mode="coul",
-                                    water_filter=wfilt))
+                                    water_filter=wfilt, has_alch=has_alch))
                     for we in (True, False)}
                 self._split = dict(
                     S_L=S_L, S_Q=S_Q, plan_L=plan_L, plan_Q=plan_Q,
@@ -421,10 +433,6 @@ class FastSim:
         x_init = np.concatenate(
             [x0_np, np.full((pad, 3), 1.0e6, np.float32)], axis=0)
         if velocities is None:
-            if cfg.max_init_relaxation_iters:
-                raise NotImplementedError(
-                    "FastSim.minimize is not ported: pass velocities or "
-                    "max_init_relaxation_iters=None")
             v0 = init_velocities(generator, top.masses.to(dev),
                                  top.dof_mask.to(dev), cfg.temp_target)
         else:
@@ -439,7 +447,7 @@ class FastSim:
             masses=self._masses_base[perm_init],
             dof=self._dof_base[perm_init], wl=None, nw=None,
             bond_idx=None, angle_idx=None, dihedral_idx=None, excl_idx=None,
-            p14_idx=None, hc_idx=self._hc_idx_base,
+            p14_idx=None, intra_idx=None, hc_idx=self._hc_idx_base,
             f=torch.zeros((S, 3), **f32), box=T(box_np),
             couple=torch.ones((), **f32), step=0,
             overflow=torch.zeros((), **i64), pe_last=zero_f,
@@ -458,6 +466,10 @@ class FastSim:
         self._wall_time = 0.0
         self._sim_time_ps = 0.0
         self._last_terms = {}
+        # the reference's init relaxation (max_init_relaxation_iters),
+        # skipped when the caller supplies velocities (restart / replan)
+        if velocities is None and cfg.max_init_relaxation_iters:
+            self.minimize(int(cfg.max_init_relaxation_iters))
 
     # ------------------------------------------------------------------
     def _merge_tables(self, widx, vsite_idx, hc_idx):
@@ -621,6 +633,7 @@ class FastSim:
             dihedral_idx=gather_idx(bp["dihedral_idx"]),
             excl_idx=gather_idx(self._excl_idx_base),
             p14_idx=gather_idx(bp["pair14_idx"]),
+            intra_idx=gather_idx(self._im_idx_base),
             hc_idx=hc_new, overflow=st.overflow | ovf,
             **self._merge_tables(widx_new, vsite_new, hc_new))
 
@@ -745,8 +758,22 @@ class FastSim:
                 * torch.erf(beta * rr4) / rr4)
             e_rest = (e_bonded - el_x - ec_x - el_4 - ec_4 + e14_lj + e14_c
                       + e_recip + e_self + e_corr + e_corr4)
+            if self._has_alch:
+                # couple-intramol=no: the recip sum scaled the coupled
+                # molecule's non-excluded internal pairs by couple^2; the
+                # direct sum keeps them at full strength, so restore them
+                mi, mj = st.intra_idx[:, 0], st.intra_idx[:, 1]
+                ddm = minimum_image(xv[mi] - xv[mj], box)
+                rrm = torch.sqrt(torch.clamp_min(torch.sum(ddm * ddm, -1),
+                                                 1e-4))
+                e_comp = COULOMB_CONST * (1.0 - couple * couple) * torch.sum(
+                    self._im_mask * q_plain[mi] * q_plain[mj]
+                    * torch.erf(beta * rrm) / rrm)
+                e_rest = e_rest + e_comp
             terms = dict(bond=eb, angle=ea, dihedral=ed, recip=e_recip,
                          energy_potential_bonded=e_bonded)
+            if self._has_alch:
+                terms["comp"] = e_comp
             return e_rest, terms
 
         def force(x, st: FastState):
@@ -948,6 +975,63 @@ class FastSim:
         return st, terms, es
 
     # ------------------------------------------------------------------
+    def _minimize_chunk(self, st: FastState, k: int, max_disp: float):
+        """Rebuild, k capped moves, then the closing force evaluation that
+        keeps the carried-force invariant. Returns (state, energy of the
+        last move's start)."""
+        st = self._rebuild(st)
+        cp, _ = self._make_cp_cv()
+        force = self._make_force_fn(True)
+        movable = st.dof[:, None] > 0
+        x = st.x
+        e = None
+        for _ in range(k):
+            f, (e, _t) = force(x, st)
+            norm = torch.sqrt(torch.sum(f * f, dim=-1, keepdim=True))
+            step_v = f * (max_disp / torch.clamp_min(norm, 1e-9))
+            step_v = torch.where(norm > 1e-9, step_v,
+                                 torch.zeros_like(step_v))
+            x_new = x + step_v * movable
+            if cp is not None:
+                x_new = cp(x_new, x, st)
+            x = x_new
+        f, (e_end, _t) = force(x, st)
+        return st.replace(x=x, f=f, pe_last=e_end), e
+
+    def minimize(self, n_iters: int = 400, max_disp: float = 0.02) -> float:
+        """Clash relaxation: capped-displacement steepest descent (each
+        movable site moves max_disp A along its force) with the constraint
+        projection after every move, neighbor_rebuild_every moves per
+        rebuild, n_iters rounded up to whole rebuild periods. A table
+        overflow restores the start state, replans (widening the window
+        tables only when they overflowed) and redoes the quench, up to 5
+        attempts; an energy from truncated tables is never returned.
+        Returns the potential energy before the last move."""
+        k = self.cfg.neighbor_rebuild_every
+        snap = self.state
+        for attempt in range(5):
+            done = 0
+            e = None
+            with torch.no_grad():
+                while done < n_iters:
+                    self.state, e = self._minimize_chunk(self.state, k,
+                                                         max_disp)
+                    done += k
+            ovf = int(self.state.overflow)
+            if ovf == 0:
+                break
+            window = bool(ovf >> 15)
+            if attempt == 4:
+                raise ColpairOverflowError(
+                    f"minimize(): overflow (col={ovf & 0x7FFF}, "
+                    f"win={ovf >> 15}) persists after the replan budget")
+            self.state = snap.replace(
+                overflow=torch.zeros_like(snap.overflow))
+            self._replan(per_slice_k=2 * self._psk if window else None)
+            snap = self.state
+        return float(e)
+
+    # ------------------------------------------------------------------
     def _replan(self, per_slice_k=None):
         """Rebuild the engine around the current state (optionally with
         wider window tables). Positions, velocities, step, couple and the
@@ -1084,3 +1168,23 @@ class FastSim:
                                                  self.state)[1]
         self._last_terms = terms
         return float(e)
+
+    def configure_alchemical_window(self, lam: float):
+        """Reference convention: lambda 0 = fully coupled (couple = 1)."""
+        self.state = self.state.replace(couple=torch.tensor(
+            1.0 - lam, dtype=torch.float32, device=self.device))
+
+    def dhdl(self) -> float:
+        """dH/dlambda at the current state: the central difference
+        -(E(couple + h) - E(couple - h)) / 2h in float32, h = 1e-3, through
+        the energy force function (two force evaluations). 0.0 when nothing
+        is coupled. Its float32 floor is about eps32 * sum|terms| / 2h."""
+        if not self._has_alch:
+            return 0.0
+        st = self.state
+        force = self._make_force_fn(True)
+        h = torch.tensor(1e-3, dtype=torch.float32, device=self.device)
+        with torch.no_grad():
+            ep = force(st.x, st.replace(couple=st.couple + h))[1][0]
+            em = force(st.x, st.replace(couple=st.couple - h))[1][0]
+        return float(-(ep - em) / (2.0 * h))

@@ -40,7 +40,7 @@ _TWO_OVER_SQRT_PI = 2.0 / math.sqrt(math.pi)
 # pairs) are evaluated at the clamped distance, in the kernel and in the
 # subtraction path alike.
 R2_MIN = 0.25
-# Alchemical softcore constants (pair-list path only in this port).
+# Alchemical softcore constants (has_alch kernels and the pair-list path).
 SC_ALPHA = 0.5
 SC_SIG2_MIN = 9.0
 # LJ C1 sigma clamp: s^2 = (sigma/r)^2 is capped smoothly at 1/SIG_CLAMP^2
@@ -402,14 +402,23 @@ def make_window_fn(plan: ColPlan, per_slice_k: int = PER_SLICE_K):
 # ---------------------------------------------------------------------------
 
 def _pair_tile(xi, yi, zi, qi, shi, sei, jx, jy, jz, jq, jsh, jse, valid,
-               rc2, beta, coeffs, want_energy, mode, kpoly, mags=False):
+               rc2, beta, coeffs, want_energy, mode, kpoly, mags=False,
+               alch=None):
     """Broadcast pair math of the kernel (same op order as csrc/colpair.cu).
     Returns (coeff = dV/dr2 masked, e_lj, e_c, dx, dy, dz, mag). With
     `mags`, mag = (|coeff| scale, |energy| scale): each the sum of the
     magnitudes of the terms that float32 roundoff acts on, the LJ force
     taken before the C1 blend factor gp (gp -> 0 at the clamp, so its
     absolute roundoff is relative to the unblended force) and the K-poly
-    as its Horner on |c| and |t| (the monomial terms cancel); else None."""
+    as its Horner on |c| and |t| (the monomial terms cancel); else None.
+
+    `alch` is the per-pair coupling factor 1 - is_alch (1 - couple) of the
+    has_alch kernels: Beutler softcore LJ and r^2-softcore Coulomb, with
+    the erfcx force (the K-poly cannot carry the softcore 1/r_sc). For
+    pairs with alch = 1 the softcore terms vanish (soft_c = 0, invd = 1)."""
+    if alch is not None and kpoly is not None:
+        raise ValueError("K-poly Coulomb cannot run with the alchemical "
+                         "softcore: has_alch kernels take the erfcx force")
     dx = xi - jx
     dy = yi - jy
     dz = zi - jz
@@ -419,6 +428,15 @@ def _pair_tile(xi, yi, zi, qi, shi, sei, jx, jy, jz, jq, jsh, jse, valid,
     inv_r = torch.rsqrt(r2s)
     inv_r2 = inv_r * inv_r
     zero = torch.zeros((), dtype=r2.dtype, device=r2.device)
+    if alch is not None:
+        # sigma lanes are read in every mode, 'coul' too, as the reference
+        # does; the SC_SIG2_MIN floor keeps them harmless there
+        sigsc = shi + jsh
+        a_lj = SC_ALPHA * (1.0 - alch)
+        soft_c = torch.clamp_min(sigsc * sigsc, SC_SIG2_MIN) * a_lj
+        inv_rc = torch.rsqrt(r2s + soft_c)
+    else:
+        inv_rc = inv_r
     dlj = zero
     dc = zero
     e_lj = e_c = None
@@ -426,18 +444,32 @@ def _pair_tile(xi, yi, zi, qi, shi, sei, jx, jy, jz, jq, jsh, jse, valid,
     if mode != "coul":
         sig = shi + jsh                   # inputs are sigma/2
         eps4 = sei * jse                  # inputs are 2 sqrt(eps)
+        if alch is not None:
+            eps4 = eps4 * alch
         s2_raw = sig * sig * inv_r2
         s2, gp = _s2_clamped(s2_raw)
         s6 = s2 * s2 * s2
-        dlj = eps4 * inv_r2 * (gp * s2_raw) * (s2 * s2) * (3.0 - 6.0 * s6)
+        if alch is not None:
+            # Beutler: V = eps4 (inv^2 - inv), inv = s6 / (a s6 + 1)
+            invd = 1.0 / (a_lj * s6 + 1.0)
+            s6 = s6 * invd
+            dlj = eps4 * inv_r2 * (gp * s2_raw) * (s2 * s2) \
+                * (invd * invd) * (3.0 - 6.0 * s6)
+        else:
+            invd = None
+            dlj = eps4 * inv_r2 * (gp * s2_raw) * (s2 * s2) * (3.0 - 6.0 * s6)
         if want_energy:
             e_lj = torch.where(valid, eps4 * (s6 * s6 - s6), zero)
         if mags:
-            c_mag = (eps4.abs() * inv_r2 * s2_raw * (s2 * s2)
-                     * (3.0 + 6.0 * s6))
+            c_mag = eps4.abs() * inv_r2 * s2_raw * (s2 * s2)
+            if invd is not None:
+                c_mag = c_mag * (invd * invd)
+            c_mag = c_mag * (3.0 + 6.0 * s6)
             e_mag = eps4.abs() * (s6 * s6 + s6)
     if mode != "lj":
         kqq = qi * jq                     # inputs are q sqrt(k_C)
+        if alch is not None:
+            kqq = kqq * alch
         if kpoly is not None and not want_energy:
             kc, kxmax = kpoly
             t = (r2s * inv_r) * (2.0 * beta / kxmax) - 1.0
@@ -458,11 +490,18 @@ def _pair_tile(xi, yi, zi, qi, shi, sei, jx, jy, jz, jq, jsh, jse, valid,
             for c in coeffs[-2::-1]:
                 g = g * x + c
             erfc_v = g * ex
-            dc = -kqq * inv_r2 * (0.5 * erfc_v * inv_r
-                                  + (0.5 * _TWO_OVER_SQRT_PI * beta) * ex)
+            if alch is not None:
+                # d/dr2 of erfc(beta r) / r_sc, r_sc^2 = r^2 + soft_c (erfc
+                # keeps the real r)
+                dc = -kqq * ((0.5 * _TWO_OVER_SQRT_PI * beta)
+                             * ex * inv_r * inv_rc
+                             + 0.5 * erfc_v * inv_rc * inv_rc * inv_rc)
+            else:
+                dc = -kqq * inv_r2 * (0.5 * erfc_v * inv_r
+                                      + (0.5 * _TWO_OVER_SQRT_PI * beta) * ex)
             dc_mag = dc.abs()
             if want_energy:
-                e_c = torch.where(valid, kqq * erfc_v * inv_r, zero)
+                e_c = torch.where(valid, kqq * erfc_v * inv_rc, zero)
                 e_mag = e_mag + e_c.abs()
     coeff = torch.where(valid, dlj + dc, zero)
     mag = None
@@ -472,8 +511,11 @@ def _pair_tile(xi, yi, zi, qi, shi, sei, jx, jy, jz, jq, jsh, jse, valid,
     return coeff, e_lj, e_c, dx, dy, dz, mag
 
 
-def colpair_plain(rows, pT, wl, nw, box, cfg, stats=None):
+def colpair_plain(rows, pT, wl, nw, box, cfg, couple=None, stats=None):
     """Plain torch version of the kernel: (f [S, 3], e_lj, e_c).
+
+    `couple` (scalar, 1 = fully coupled) is read only by has_alch
+    instances, which require it.
 
     Vectorised over [clusters, slices, 64, 128], chunked over clusters so a
     chunk's tiles stay under CHUNK_ELEMS elements; reactions go back by
@@ -490,6 +532,10 @@ def colpair_plain(rows, pT, wl, nw, box, cfg, stats=None):
     K = wl.shape[1] // 3
     wl3 = wl.reshape(NC, K, 3).long()
     nw = nw.long()
+    if cfg.has_alch:
+        if couple is None:
+            raise ValueError("has_alch colpair needs the couple value")
+        omc = 1.0 - torch.as_tensor(couple, dtype=rows.dtype, device=dev)
     f = torch.zeros((S, 3), dtype=rows.dtype, device=dev)
     e_lj = torch.zeros((), dtype=rows.dtype, device=dev)
     e_c = torch.zeros((), dtype=rows.dtype, device=dev)
@@ -534,12 +580,17 @@ def colpair_plain(rows, pT, wl, nw, box, cfg, stats=None):
             wlo, whi = cfg.water_filter
             jok = jok & (((gi >= wlo) & (gi < whi))
                          | ((gj >= wlo) & (gj < whi)))
+        alch = None
+        if cfg.has_alch:
+            cmi, cmj = ii(6), jj(pj[6])
+            is_alch = cmi + cmj - 2.0 * cmi * cmj
+            alch = 1.0 - is_alch * omc
         coeff, elj, ec, dx, dy, dz, mag = _pair_tile(
             ii(0), ii(1), ii(2), ii(3), ii(4), ii(5),
             jj(pj[0] + shx), jj(pj[1] + shy), jj(pj[2] + shz),
             jj(pj[3]), jj(pj[4]), jj(pj[5]), jok,
             cfg.rc2, cfg.beta, cfg.coeffs, cfg.want_energy, cfg.mode,
-            cfg.kpoly, mags=stats is not None)
+            cfg.kpoly, mags=stats is not None, alch=alch)
         c2 = 2.0 * coeff
         d = torch.stack([c2 * dx, c2 * dy, c2 * dz], -1)          # [c,k,I,L,3]
         f[c0 * ICL:c1 * ICL] -= d.sum(dim=(1, 3)).reshape(-1, 3)
@@ -596,6 +647,7 @@ class KernelCfg:
     beta: float = 0.0
     coeffs: Tuple[float, ...] = ()
     kpoly: Tuple[Tuple[float, ...], float] = None
+    has_alch: bool = False
 
 
 class ColpairDirect:
@@ -609,20 +661,24 @@ class ColpairDirect:
 
     CUDA tensors launch the hand-written kernel (csrc/colpair.cu); CPU
     tensors take `colpair_plain`. `launches[name]` counts the kernel's
-    launches per variant name (e.g. "colpair_coul_wf_force"), across all
-    instances. K-poly Coulomb is on iff force-only and mode != 'lj'.
+    launches per variant name (e.g. "colpair_coul_wf_force",
+    "colpair_full_alch_force"), across all instances. K-poly Coulomb is on
+    iff force-only and mode != 'lj' and not has_alch. has_alch instances
+    (softcore pairs of the coupled molecule, rows col 6 = couple mask)
+    read `couple` as a 0-d tensor on the rows' device and take mode 'full'
+    or 'coul' (an alchemical solute sits in the L subset, which is then
+    'full').
     """
     launches: dict = {}
 
     def __init__(self, plan: ColPlan, want_energy: bool, mode: str = "full",
                  water_filter=None, has_alch: bool = False):
-        if has_alch:
-            raise NotImplementedError(
-                "alchemical colpair kernels are not ported yet")
         if mode not in _MODES:
             raise ValueError(f"unknown colpair mode {mode!r}")
+        if has_alch and mode == "lj":
+            raise ValueError("has_alch colpair takes mode 'full' or 'coul'")
         kpoly = None
-        if not want_energy and mode != "lj":
+        if not want_energy and mode != "lj" and not has_alch:
             kpoly = (tuple(float(v) for v in plan.kpoly_coeffs),
                      float(plan.kpoly_xmax))
         self.cfg = KernelCfg(
@@ -630,9 +686,11 @@ class ColpairDirect:
             water_filter=(None if water_filter is None else
                           tuple(float(v) for v in water_filter)),
             rc2=float(plan.cutoff) ** 2, beta=float(plan.beta),
-            coeffs=tuple(float(v) for v in plan.erfcx_coeffs), kpoly=kpoly)
+            coeffs=tuple(float(v) for v in plan.erfcx_coeffs), kpoly=kpoly,
+            has_alch=bool(has_alch))
         self.name = "_".join(
             ["colpair", mode] + (["wf"] if water_filter is not None else [])
+            + (["alch"] if has_alch else [])
             + ["energy" if want_energy else "force"])
         self._params = {}
 
@@ -655,8 +713,8 @@ class ColpairDirect:
                 p[4], p[5] = c.water_filter
             p[6] = len(c.coeffs)
             p[7] = len(kp)
-            p[8:14] = (_S2_LO, _S2_HI, _S2_W, 0.5 / _S2_W, 1.0 / _S2_W,
-                       R2_MIN)
+            p[8:16] = (_S2_LO, _S2_HI, _S2_W, 0.5 / _S2_W, 1.0 / _S2_W,
+                       R2_MIN, SC_ALPHA, SC_SIG2_MIN)
             p[16:16 + len(c.coeffs)] = c.coeffs
             p[40:40 + len(kp)] = kp
             self._params[device] = torch.as_tensor(p, device=device)
@@ -672,19 +730,22 @@ class ColpairDirect:
                 nw.shape != (S // ICL,):
             raise ValueError("colpair window table does not match rows")
         if rows.device.type == "cpu":
-            return colpair_plain(rows, pT, wl, nw, box, self.cfg)
+            return colpair_plain(rows, pT, wl, nw, box, self.cfg, couple)
         f, e = colpair_cuda(self.cfg, rows, pT, wl, nw, box,
-                            self.params(rows.device))
+                            self.params(rows.device), couple)
         ColpairDirect.launches[self.name] = \
             ColpairDirect.launches.get(self.name, 0) + 1
         return f, e[:, 0].sum(), e[:, 1].sum()
 
 
-def colpair_cuda(cfg: KernelCfg, rows, pT, wl, nw, box, params):
+def colpair_cuda(cfg: KernelCfg, rows, pT, wl, nw, box, params,
+                 couple=None):
     """Launch csrc/colpair.cu on the current stream: (f [S, 3], per-cluster
     energies [NC, 2] = (e_lj, e_c)). The outputs are made here: f zeroed
-    (the kernel adds i-forces and j reactions with atomics). Counts no
-    launch; `ColpairDirect` does."""
+    (the kernel adds i-forces and j reactions with atomics). has_alch
+    instances read `couple` through its device pointer (a 0-d float32
+    tensor, changed per window and shifted inside dhdl without a host
+    sync). Counts no launch; `ColpairDirect` does."""
     import ctypes
 
     from ..cuda_build import load_library
@@ -702,15 +763,24 @@ def colpair_cuda(cfg: KernelCfg, rows, pT, wl, nw, box, params):
                              f"tensor on {dev}")
     if box.numel() != 3:
         raise ValueError("colpair: box must hold 3 extents")
+    c_ptr = ctypes.c_void_p(None)
+    if cfg.has_alch:
+        if couple is None:
+            raise ValueError("has_alch colpair needs the couple value")
+        couple = torch.as_tensor(couple, dtype=torch.float32, device=dev)
+        if couple.numel() != 1:
+            raise ValueError("colpair: couple must be a scalar")
+        couple = couple.contiguous()
+        c_ptr = ctypes.c_void_p(couple.data_ptr())
     lib = load_library()
     f = torch.zeros((S, 3), dtype=torch.float32, device=dev)
     e = torch.zeros((NC, 2), dtype=torch.float32, device=dev)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     err = lib.colpair_launch(
         _MODES[cfg.mode], int(cfg.want_energy),
-        int(cfg.water_filter is not None), NC, wl.shape[1], S,
-        ptr(wl), ptr(nw), ptr(rows), ptr(pT), ptr(box), ptr(params),
-        ptr(f), ptr(e),
+        int(cfg.water_filter is not None), int(cfg.has_alch), NC,
+        wl.shape[1], S, ptr(wl), ptr(nw), ptr(rows), ptr(pT), ptr(box),
+        ptr(params), c_ptr, ptr(f), ptr(e),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"colpair kernel launch failed: CUDA error {err}")

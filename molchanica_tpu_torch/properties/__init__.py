@@ -1,0 +1,2 @@
+"""Science workloads built on the MD engines (reference src/properties/)."""
+from .water_sol import WaterSolMdProperties, run_sol_sim_fast  # noqa: F401

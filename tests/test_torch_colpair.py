@@ -8,7 +8,9 @@ max|dF|/max|F| < 1e-5 and energies rel < 1e-5 (float32 summation order
 only); the plain version in float32 against its float64 run, per site
 < 5e-6 of the site's sum of pair-force term magnitudes and per cluster
 < 2e-6 of its sum of pair-energy term magnitudes; pair-list energies
-rel < 1e-5 and forces < 1e-5 of scale.
+rel < 1e-5 and forces < 1e-5 of scale. The has_alch (softcore) instances
+are held to the same tolerances with the first ten solute atoms coupled,
+at couple 1.0, 0.5 and 0.05.
 """
 
 import jax
@@ -170,6 +172,37 @@ def _instances(sim):
     return out
 
 
+N_COUPLED = 10       # solute base ids 0..9 form the coupled molecule
+
+
+def _alch_instances(sim):
+    """(name, port has_alch kernel, matching Pallas kernel, rows, wl, nw)
+    for L ('full') and Q ('coul' + water filter), force-only and energy,
+    with rows col 6 (couple mask) set on the coupled solute atoms."""
+    st = sim.state
+    sp = st.split
+    x_ext = torch.cat([st.x, torch.full((1, 3), 1e6)])
+    out = {}
+    for key in ("L", "Q"):
+        k = key.lower()
+        rows = torch.cat([x_ext[sp[f"idx_{k}"]], sp[f"props_{k}"]], 1)
+        g = rows[:, 7]
+        rows[:, 6] = ((g >= 1) & (g <= N_COUPLED)).to(rows.dtype)
+        for we in (True, False):
+            cfg = sim._split["kernels"][we][key].cfg
+            plan = sim._split[f"plan_{key}"]
+            kern = T.ColpairDirect(plan, want_energy=we, mode=cfg.mode,
+                                   water_filter=cfg.water_filter,
+                                   has_alch=True)
+            jk = J.make_colpair_direct_fn(
+                _jplan(plan), has_alch=True, want_energy=we, interpret=True,
+                triangular=True, mode=cfg.mode,
+                water_filter=cfg.water_filter, per_slice_k=64)
+            out[(cfg.mode, we)] = (kern.name, kern, jk, rows, sp[f"wl_{k}"],
+                                   sp[f"nw_{k}"])
+    return out
+
+
 def _master_perm(sim):
     xw, box = _sort_inputs(sim)
     return sim._anchor_sort(xw, box)[0]
@@ -189,6 +222,62 @@ def test_kernel_plain_matches_pallas(sim, case):
         ref = float(np.float32(ref))
         assert abs(float(got) - ref) <= 1e-5 * max(abs(ref), 1e-3), name
     assert np.abs(fr).max() > 0
+
+
+@pytest.mark.parametrize("couple", [1.0, 0.5, 0.05])
+@pytest.mark.parametrize("we", [False, True])
+@pytest.mark.parametrize("mode", ["full", "coul"])
+def test_alch_kernel_plain_matches_pallas(sim, mode, we, couple):
+    """K1d: the plain softcore twin against the Pallas has_alch kernel.
+    At couple 1 the softcore terms vanish; 0.5 and 0.05 (lambda 0.95) are
+    where soft_c and the Beutler denominator are large."""
+    name, kern, jk, rows, wl, nw = _alch_instances(sim)[(mode, we)]
+    assert kern.cfg.kpoly is None and "alch" in name
+    assert kern.cfg.water_filter is not None or mode == "full"
+    st = sim.state
+    c = torch.tensor(couple, dtype=torch.float32)
+    f, e_lj, e_c = kern(rows, rows.T.contiguous(), wl, nw, st.box, c)
+    fr, ljr, cr = jk(_j(rows), _j(rows).T, _j(wl), _j(nw), _j(st.box),
+                     jnp.float32(couple))
+    fr = np.asarray(fr, np.float32)
+    assert np.abs(f.numpy() - fr).max() / np.abs(fr).max() < 1e-5, name
+    for got, ref in ((e_lj, ljr), (e_c, cr)):
+        ref = float(np.float32(ref))
+        assert abs(float(got) - ref) <= 1e-5 * max(abs(ref), 1e-3), name
+    assert np.abs(fr).max() > 0
+    if couple < 1.0:
+        # the coupling changes the result: the softcore branch acted
+        f1, _, _ = kern(rows, rows.T.contiguous(), wl, nw, st.box,
+                        torch.tensor(1.0))
+        assert float((f1 - f).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("we", [False, True])
+@pytest.mark.parametrize("mode", ["full", "coul"])
+def test_alch_plain_stats_and_float32_floor(sim, mode, we):
+    """The per-site and per-cluster scales cover the softcore terms: at
+    couple 0.05 the plain has_alch twin in float32 against its float64 run
+    stays under the floors of the plain instances (5e-6, 2e-6), and |F|
+    and |E_cluster| stay under their magnitude sums."""
+    name, kern, _, rows, wl, nw = _alch_instances(sim)[(mode, we)]
+    box = sim.state.box
+    stats32 = {}
+    f, _, _ = T.colpair_plain(rows, rows.T.contiguous(), wl, nw, box,
+                              kern.cfg, 0.05, stats=stats32)
+    slack = 1.0 + 1e-5
+    assert bool((torch.linalg.vector_norm(f, dim=1)
+                 <= stats32["f_abs"] * slack + 1e-6).all()), name
+    assert bool((stats32["e_cluster"].abs()
+                 <= stats32["e_abs"] * slack + 1e-6).all()), name
+    r64 = rows.double()
+    stats64 = {}
+    f64, _, _ = T.colpair_plain(r64, r64.T.contiguous(), wl, nw,
+                                box.double(), kern.cfg, 0.05, stats=stats64)
+    rel_f, rel_e = T.colpair_parity(f.double(),
+                                    stats32["e_cluster"].double(), f64,
+                                    stats64)
+    assert rel_f < 5e-6, name
+    assert rel_e < 2e-6, name
 
 
 @pytest.mark.parametrize("case", range(6))
@@ -266,8 +355,22 @@ def test_parity_gate_catches_a_water_lj_error(sim, we):
 
 
 def test_kernel_wrapper_checks(sim):
-    with pytest.raises(NotImplementedError):
-        T.ColpairDirect(sim.plan, want_energy=False, has_alch=True)
+    alch = T.ColpairDirect(sim.plan, want_energy=False, has_alch=True)
+    assert alch.cfg.kpoly is None and alch.name == "colpair_full_alch_force"
+    with pytest.raises(ValueError):
+        T.ColpairDirect(sim.plan, want_energy=False, mode="lj",
+                        has_alch=True)
+    with pytest.raises(ValueError):
+        T.colpair_plain(torch.zeros((sim.S, 8)), torch.zeros((8, sim.S)),
+                        torch.zeros((sim.plan.n_clusters, 3),
+                                    dtype=torch.int32),
+                        torch.zeros((sim.plan.n_clusters,),
+                                    dtype=torch.int32),
+                        sim.state.box, alch.cfg)
+    z = torch.zeros((2, 2))
+    with pytest.raises(ValueError):
+        T._pair_tile(*([z] * 12), z > 0, 1.0, 0.3, (1.0,), False, "full",
+                     ((1.0, 2.0), 3.0), alch=z)
     with pytest.raises(ValueError):
         T.ColpairDirect(sim.plan, want_energy=False, mode="bogus")
     kern = sim._direct[False]

@@ -41,7 +41,20 @@ Phases, each printed on lines of its own:
  14. the TI path: run_sol_sim_fast on the card at the full box and all 13
      HYDRATION_LAMBDAS windows, shortened (--ti-equil, --ti-prod); K1d
      launch counts over exactly that call, against its force_evals;
- 15. the kernel JSON line, the card line, and the final JSON result line.
+ 15. K1c: FastSim(per_slice_k=0) on config 3 at the same state (range
+     tables); each range instance it runs (L/Q x force-only/energy)
+     against its plain torch version on the real tables, then a warm-up
+     and a timed step call (--range-warm, --range-steps) with launches
+     counted against its force evaluations;
+ 16. K1f: the sharded colpair on config 3 (per-site sort, range tables,
+     every site its own exclusion group): 8 ranks spawned on the one card
+     over gloo (parallel/launch.py); on every rank the shard kernel
+     against its plain version on the rank's local inputs, then
+     --shard-calls sharded calls (energy and force-only) with launches
+     counted per rank; the assembled forces and energies against the
+     single-device K1c kernel on the same sorted state;
+ 17. parallel/dryrun.py::dryrun_multidevice(4, "gloo", "cuda");
+ 18. the kernel JSON line, the card line, and the final JSON result line.
 An NVT hold (the mean temperature of further FastSim steps near 310 K)
 runs only when --hold N asks for it.
 
@@ -125,6 +138,15 @@ DHDL_FLOORS = 8.0
 # run before the softcore fix (docs/TI_SHOWCASE.json) integrated to +1218
 # kcal/mol
 DHDL_BLOWUP = 500.0
+# the range-table FastSim (phase 15) and the sharded colpair (phase 16):
+# ranks on the one card, and sharded calls per variant. The assembled
+# forces are held to 1e-4 of max|F| (the JAX package's 25k bound) and,
+# per site and per i-cluster, to the kernel gates above
+N_RANGE_WARM = 20
+N_RANGE_STEPS = 100
+N_SHARD = 8
+N_SHARD_CALLS = 20
+SHARD_TOL_F_MAX = 1e-4
 
 
 def say(*a):
@@ -555,6 +577,285 @@ def ti_path(n_equil, n_prod, torch, np):
                          for w in props.windows]), counts
 
 
+def range_path(build0, n_warm, n_steps, torch, np):
+    """Phase 15: FastSim(per_slice_k=0) on config 3. Its four range
+    instances against their plain versions, then step(0.002, n_warm), a
+    timed step(0.002, n_steps) and potential_energy(), launches counted
+    over exactly those calls. Returns (kernel entries, summary)."""
+    from molchanica_tpu_torch.ops.colpair import ColpairDirect
+
+    t0 = time.perf_counter()
+    sim = build0()
+    torch.cuda.synchronize()
+    sp = sim._split
+    say(f"[range] FastSim(per_slice_k=0) init {time.perf_counter() - t0:.1f}"
+        f" s: psk={sim._psk} wl_l {tuple(sim.state.split['wl_l'].shape)} "
+        f"wl_q {tuple(sim.state.split['wl_q'].shape)} (w_max "
+        f"{sp['plan_L'].w_max}), max entries L "
+        f"{int(sim.state.split['nw_l'].max())} Q "
+        f"{int(sim.state.split['nw_q'].max())}")
+    if sim._psk != 0 or sim.state.split["wl_l"].shape[1] != \
+            3 * sp["plan_L"].w_max:
+        raise SystemExit("FastSim(per_slice_k=0) did not build range tables")
+    entries = kernel_parity(sim, torch)
+    ColpairDirect.launches.clear()
+    evals0 = sim.force_evals
+    t0 = time.perf_counter()
+    sim.step(0.002, n_warm)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sim.step(0.002, n_steps)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t1
+    e_pot = sim.potential_energy()
+    counts = dict(ColpairDirect.launches)
+    n_eval = sim.force_evals - evals0
+    t_final = sim.temperature()
+    finite = bool(np.isfinite(sim.positions_unsorted()).all())
+    ms_step = elapsed / n_steps * 1e3
+    say(f"[range] warm-up {n_warm} steps {t1 - t0:.1f} s; n={n_steps} "
+        f"ms/step={ms_step:.4f} T={t_final:.2f} K E_pot={e_pot:.3f} "
+        f"kcal/mol finite={finite} overflow={int(sim.state.overflow)}")
+    say(f"[range] colpair launches {sum(counts.values())} (expected 2 x "
+        f"{n_eval} force evaluations): {counts}")
+    for e in entries:
+        e["launches"] = counts.get(e["name"], 0)
+    if not finite or not 100.0 < t_final < 600.0 or not np.isfinite(e_pot):
+        raise SystemExit(f"range-table run: finite={finite} T={t_final}")
+    if sum(counts.values()) != 2 * n_eval or any(
+            e["launches"] == 0 or "_range_" not in e["name"]
+            for e in entries):
+        raise SystemExit(f"range-table launches {counts} != 2 x {n_eval}")
+    return entries, dict(ms_per_step=ms_step, temperature_K=t_final,
+                         n_timed=n_steps, force_evals=n_eval)
+
+
+def shard_rank(rank, n_dev, device, plan, halo, rows, wl, nw, box, n_calls):
+    """One rank of phase 16 (spawned by parallel/launch.py). For the energy
+    and the force-only sharded colpair: the rank's K1f launch against its
+    plain version on the rank's local inputs, both timed with CUDA events
+    while the other ranks wait (the card's time is shared between the
+    processes' contexts), then n_calls sharded calls on all ranks at once
+    with the launches counted (host clock, exchange included), the
+    exchange alone, and the gathered results."""
+    import torch
+    import torch.distributed as dist
+
+    from molchanica_tpu_torch.ops.colpair import (ColpairDirect, colpair_cuda,
+                                                  colpair_parity,
+                                                  colpair_plain)
+    from molchanica_tpu_torch.parallel.spatial_colpair import (
+        block, make_sharded_colpair_direct)
+
+    to = lambda t: block(t, rank, n_dev).to(device).contiguous()
+    rows_b, wl_b, nw_b = to(rows), to(wl), to(nw)
+    box = box.to(device)
+    couple = torch.ones((), device=device)
+    out = dict(rank=rank, device=str(device))
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            r = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n_calls * 1e3, r
+
+    for we in (True, False):
+        sh = make_sharded_colpair_direct(None, plan, halo, want_energy=we,
+                                         device=device)
+        kern = sh.kernel
+        i_base = halo * sh.B
+        pT, wl_loc = sh.local_inputs(rows_b, wl_b)
+        f_i, f_j, e = colpair_cuda(kern.cfg, rows_b, pT, wl_loc, nw_b, box,
+                                   kern.params(device), couple, i_base=i_base)
+        stats = {}
+        p_i, p_j, elj_p, ec_p = colpair_plain(rows_b, pT, wl_loc, nw_b, box,
+                                              kern.cfg, couple, stats=stats,
+                                              i_base=i_base)
+        torch.cuda.synchronize()
+
+        def sites(a_i, a_j):
+            """This rank's force on each local j slot: the own block's
+            slots take their i-forces and their reactions together."""
+            s = a_j.clone()
+            s[i_base:i_base + a_i.shape[0]] += a_i
+            return s
+
+        n_i = rows_b.shape[0]
+        f_k, f_p = sites(f_i, f_j), sites(p_i, p_j)
+        stats["f_abs"] = sites(stats["f_abs"][:n_i], stats["f_abs"][n_i:])
+        rel_f, rel_e = colpair_parity(f_k, e.sum(1), f_p, stats)
+        err = float((f_k - f_p).abs().max())
+        e_k, e_p = float(e.sum()), float(elj_p + ec_p)
+        for r in range(n_dev):              # one rank on the card at a time
+            dist.barrier()
+            if r == rank:
+                ms = cuda_ms(lambda: kern(rows_b, pT, wl_loc, nw_b, box,
+                                          couple), 20)
+                plain_ms = cuda_ms(lambda: colpair_plain(
+                    rows_b, pT, wl_loc, nw_b, box, kern.cfg, couple,
+                    i_base=i_base), 3)
+        e_cluster = sh.comm.all_gather(e.sum(1))
+        # the main path: n_calls sharded calls, this rank's launches
+        dist.barrier()
+        ColpairDirect.launches.clear()
+        call_ms, (f, e_lj, e_c) = host_ms(
+            lambda: sh(rows_b, wl_b, nw_b, box, couple))
+        launches = ColpairDirect.launches.get(kern.name, 0)
+        dist.barrier()
+        in_ms, _ = host_ms(lambda: sh.local_inputs(rows_b, wl_b))
+        red_ms, _ = host_ms(lambda: sh.reduce(f_i, f_j, e.sum(0)))
+        f_all = sh.comm.all_gather(f)
+        nbytes = (rows_b.numel() + pT.numel() + wl_loc.numel() + nw_b.numel()
+                  + 3 + 64 + f_i.numel() + f_j.numel() + e.numel()) * 4
+        out[we] = dict(
+            name=kern.name, pairs=stats["pairs"], err=err,
+            f_max=float(f_p.abs().max()), e_kernel=e_k, e_plain=e_p,
+            rel_f=rel_f, rel_e=rel_e, ms=ms, plain_ms=plain_ms,
+            call_ms=call_ms, exchange_in_ms=in_ms, reduce_ms=red_ms,
+            launches=launches, calls=n_calls, nbytes=nbytes,
+            s_local=sh.s_local, e_lj=float(e_lj), e_c=float(e_c),
+            e_cluster=e_cluster.cpu(), f=f_all.cpu() if rank == 0 else None,
+            backend=sh.comm.backend, world=sh.comm.size)
+    return out
+
+
+def shard_phase(asys, d, n_calls, torch, np):
+    """Phase 16: the sharded colpair on config 3 over N_SHARD ranks on the
+    one card (gloo). Returns (kernel entries, summary)."""
+    from molchanica_tpu_torch.ops.colpair import (ColpairDirect,
+                                                  colpair_cuda,
+                                                  colpair_parity,
+                                                  colpair_plain)
+    from molchanica_tpu_torch.parallel.dryrun import sorted_colpair_state
+    from molchanica_tpu_torch.parallel.launch import run_ranks
+    from molchanica_tpu_torch.parallel.spatial_colpair import halo_depth_for
+
+    top = asys.topology
+    t0 = time.perf_counter()
+    plan, rows, wl, nw, boxt = sorted_colpair_state(
+        np.asarray(d["x"], np.float64),
+        (top.charges * top.atom_mask).numpy().astype(np.float64),
+        top.lj_sigma.numpy().astype(np.float64),
+        top.lj_eps.numpy().astype(np.float64),
+        np.asarray(asys.box_extent, np.float64), 9.0, N_SHARD,
+        device="cuda")
+    halo = halo_depth_for(plan, N_SHARD, wl.cpu(), nw.cpu())
+    B = plan.n_sorted // N_SHARD
+    say(f"[shard] {top.n_atoms} sites per-site sorted, rc 9 A, skin 0.5: "
+        f"S={plan.n_sorted} NC={plan.n_clusters} cols={plan.nx}x{plan.ny} "
+        f"w_max={plan.w_max} max entries {int(nw.max())}; {N_SHARD} blocks "
+        f"of {B} slots, halo depth {halo} (local j array "
+        f"{(2 * halo + 1) * B} slots); built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    refs = {}
+    pT = rows.T.contiguous()
+    for we in (True, False):
+        one = ColpairDirect(plan, we, range_tables=True)
+        f1, e1 = colpair_cuda(one.cfg, rows, pT, wl, nw, boxt,
+                              one.params(rows.device))
+        stats = {}
+        f_p, elj_p, ec_p = colpair_plain(rows, pT, wl, nw, boxt, one.cfg,
+                                         stats=stats)
+        torch.cuda.synchronize()
+        rel_f, rel_e = colpair_parity(f1, e1.sum(1), f_p, stats)
+        err = float((f1 - f_p).abs().max()) / float(f_p.abs().max())
+        ms = cuda_ms(lambda: colpair_cuda(one.cfg, rows, pT, wl, nw, boxt,
+                                          one.params(rows.device)), 20)
+        say(f"[shard] one device {one.name}: vs plain max|dF|/max|F|="
+            f"{err:.3e}, per site {rel_f:.3e}, per cluster {rel_e:.3e}; "
+            f"kernel {ms:.4f} ms on all {plan.n_clusters} clusters "
+            f"({stats['pairs']} pairs)")
+        if not (err < KERNEL_TOL_F_MAX and rel_f < KERNEL_TOL_F
+                and rel_e < KERNEL_TOL_E):
+            raise SystemExit(f"{one.name}: kernel and plain disagree")
+        refs[we] = (f1.cpu(), e1.cpu(), {k: (v.cpu() if torch.is_tensor(v)
+                                             else v)
+                                         for k, v in stats.items()})
+    t0 = time.perf_counter()
+    res = run_ranks(shard_rank, N_SHARD, "gloo", "cuda",
+                    (plan, halo, rows.cpu(), wl.cpu(), nw.cpu(), boxt.cpu(),
+                     n_calls))
+    wall = time.perf_counter() - t0
+    r0 = res[0][True]
+    say(f"[shard] {r0['world']} ranks over {r0['backend']} on "
+        f"{sorted({r['device'] for r in res})}: spawn, checks and "
+        f"{2 * n_calls} sharded calls per rank in {wall:.1f} s")
+    entries, summary = [], {}
+    for we in (True, False):
+        rk = [r[we] for r in res]
+        name = rk[0]["name"]
+        for r, x in zip(res, rk):
+            rel_tot = abs(x["e_kernel"] - x["e_plain"]) / max(
+                abs(x["e_plain"]), 1e-30)
+            say(f"[shard] rank {r['rank']} {name}: pairs={x['pairs']} "
+                f"max|dF|/max|F|={x['err'] / x['f_max']:.3e} per site "
+                f"{x['rel_f']:.3e} per cluster {x['rel_e']:.3e} rel_e "
+                f"{rel_tot:.3e}; kernel {x['ms']:.4f} ms, plain "
+                f"{x['plain_ms']:.3f} ms; sharded call {x['call_ms']:.3f} "
+                f"ms (exchange in {x['exchange_in_ms']:.3f}, reduce "
+                f"{x['reduce_ms']:.3f}); launches {x['launches']} of "
+                f"{x['calls']} calls")
+            if not (x["err"] / x["f_max"] < KERNEL_TOL_F_MAX
+                    and x["rel_f"] < KERNEL_TOL_F
+                    and x["rel_e"] < KERNEL_TOL_E
+                    and (not we or rel_tot < KERNEL_TOL_E_TOT)):
+                raise SystemExit(f"{name} rank {r['rank']}: kernel and "
+                                 "plain disagree")
+            if x["launches"] != x["calls"]:
+                raise SystemExit(f"{name} rank {r['rank']}: {x['launches']}"
+                                 f" launches in {x['calls']} calls")
+        f1, e1, stats = refs[we]
+        f_sh = rk[0]["f"]
+        err = float((f_sh - f1).abs().max()) / float(f1.abs().max())
+        rel_f, rel_e = colpair_parity(f_sh, rk[0]["e_cluster"], f1,
+                                      dict(stats, e_cluster=e1.sum(1)))
+        de = [abs(rk[0][k] - float(e1[:, i].sum())) / max(
+            abs(float(e1[:, i].sum())), 1.0)
+            for i, k in enumerate(("e_lj", "e_c"))]
+        say(f"[shard] {name} assembled over {N_SHARD} ranks vs one device: "
+            f"max|dF|/max|F|={err:.3e} (limit {SHARD_TOL_F_MAX:g}), per "
+            f"site {rel_f:.3e}, per cluster {rel_e:.3e}; e_lj "
+            f"{rk[0]['e_lj']:.4f} vs {float(e1[:, 0].sum()):.4f}, e_c "
+            f"{rk[0]['e_c']:.4f} vs {float(e1[:, 1].sum()):.4f} (rel "
+            f"{max(de):.3e})")
+        if not (err < SHARD_TOL_F_MAX and rel_f < KERNEL_TOL_F
+                and rel_e < KERNEL_TOL_E and max(de) < KERNEL_TOL_E_TOT):
+            raise SystemExit(f"{name}: sharded and one device disagree")
+        mean = lambda k: float(np.mean([x[k] for x in rk]))
+        # the bound of the mean rank's work, as ms is the mean rank's time
+        t_ops = mean("pairs") * PAIR_OPS[("full", we)] / PEAK_FP32 * 1e3
+        t_bytes = mean("nbytes") / PEAK_BYTES * 1e3
+        entries.append(dict(
+            name=name, route="cuda",
+            source="molchanica_tpu_torch/csrc/colpair.cu",
+            replaces="molchanica_tpu/ops/pallas/colpair.py:810",
+            launches=sum(x["launches"] for x in rk),
+            max_abs_err=max(x["err"] for x in rk), ms=mean("ms"),
+            plain_ms=mean("plain_ms"),
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=None, ranks=N_SHARD, halo=halo,
+            per_rank=[{k: x[k] for k in ("pairs", "ms", "plain_ms",
+                                         "call_ms", "exchange_in_ms",
+                                         "reduce_ms", "launches", "rel_f",
+                                         "rel_e")} for x in rk],
+            assembled_rel_err=err))
+        summary[name] = dict(call_ms=mean("call_ms"),
+                             exchange_in_ms=mean("exchange_in_ms"),
+                             reduce_ms=mean("reduce_ms"), kernel_ms=mean("ms"))
+        say(f"[time] {name}: kernel {mean('ms'):.4f} ms per rank (mean of "
+            f"{N_SHARD}, each alone on the card), plain "
+            f"{mean('plain_ms'):.3f} ms, bound {entries[-1]['bound_ms']:.5f}"
+            f" ms ({entries[-1]['bound_by']}); sharded call "
+            f"{mean('call_ms'):.3f} ms, exchange in "
+            f"{mean('exchange_in_ms'):.3f} ms, reduce "
+            f"{mean('reduce_ms'):.3f} ms")
+    return entries, dict(summary, halo=halo, S=plan.n_sorted, ranks=N_SHARD,
+                         backend=r0["backend"], wall_s=wall)
+
+
 def nvt_hold(sim, n, np):
     """Mean temperature over n more steps, sampled every 200."""
     temps = []
@@ -623,6 +924,14 @@ def main():
                     "(default %(default)s)")
     ap.add_argument("--ti-prod", type=int, default=N_TI_PROD,
                     help="production steps per lambda window "
+                    "(default %(default)s)")
+    ap.add_argument("--range-steps", type=int, default=N_RANGE_STEPS,
+                    help="timed FastSim(per_slice_k=0) steps "
+                    "(default %(default)s)")
+    ap.add_argument("--range-warm", type=int, default=N_RANGE_WARM,
+                    help="its warm-up steps (default %(default)s)")
+    ap.add_argument("--shard-calls", type=int, default=N_SHARD_CALLS,
+                    help="sharded colpair calls per variant and rank "
                     "(default %(default)s)")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="after the checks, trace N more FastSim steps "
@@ -805,7 +1114,27 @@ def main():
                          f"{ti_counts}")
     entries[4:4] = alch_entries
 
-    # ---- 15. results ----
+    # ---- 15. K1c: FastSim on range tables ----
+    range_entries, range_res = range_path(
+        lambda: FastSim(asys.topology, cfg, d["x"],
+                        box_extent=asys.box_extent, velocities=d["v"],
+                        per_slice_k=0, device="cuda"),
+        args.range_warm, args.range_steps, torch, np)
+    entries[8:8] = range_entries
+
+    # ---- 16. K1f: the sharded colpair over ranks on the card ----
+    shard_entries, shard_res = shard_phase(asys, d, args.shard_calls, torch,
+                                           np)
+    entries[12:12] = shard_entries
+
+    # ---- 17. the spatial dry run on the card ----
+    from molchanica_tpu_torch.parallel.dryrun import dryrun_multidevice
+    t0 = time.perf_counter()
+    dry = dryrun_multidevice(4, "gloo", "cuda")
+    say(f"[dryrun] {time.perf_counter() - t0:.1f} s, ranks on "
+        f"{torch.cuda.get_device_name(0)}")
+
+    # ---- 18. results ----
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     if args.profile:
@@ -818,7 +1147,8 @@ def main():
                            cuda=torch.version.cuda, ms_per_step=ms_step,
                            ns_per_day=ns_day, temperature_K=t_final,
                            elapsed_s=elapsed, n_timed=args.steps,
-                           md=md_res, ti=ti, kernels=entries), fh,
+                           md=md_res, ti=ti, range=range_res,
+                           shard=shard_res, dryrun=dry, kernels=entries), fh,
                       indent=1)
     say(json.dumps({"kernels": [
         {k: e[k] for k in ("name", "route", "source", "replaces",

@@ -3,13 +3,20 @@
 //
 // Replaces the TPU kernel molchanica_tpu/ops/pallas/colpair.py::_kernel
 // (pair math _pair_tile), built by make_colpair_direct_fn, in its
-// triangular per-slice-table instances: modes lj / full / coul, force-only
-// (K-polynomial Coulomb) or with energies (erfcx Coulomb), with or without
-// the species-split water filter, and the has_alch instances (ALCH: the
+// triangular instances: modes lj / full / coul, force-only (K-polynomial
+// Coulomb) or with energies (erfcx Coulomb), with or without the
+// species-split water filter, and the has_alch instances (ALCH: the
 // softcore branch of _pair_tile for pairs of the coupled molecule with the
 // rest, Beutler LJ and r^2-softcore Coulomb, erfcx force, never K-poly).
-// The plain torch version of the same function is
-// ops/colpair.py::colpair_plain.
+// Each of them takes per-slice tables (K1a/b/d: every entry inside one
+// 128-slot slice) or range tables (K1c, per_slice_k = 0: an entry is a
+// whole [lo, hi) range and the kernel walks its slices, :876-878 and
+// :962-966 of the TPU kernel); the slice loop runs once for a per-slice
+// entry, so those instances compute what they did before it. The shard
+// variant (K1f, local_shape, :1022-1029 and :1117-1122) reads its i rows
+// from a block of clusters that sits at slot i_base of the j array, and
+// writes the i-forces and the j reactions to two outputs. The plain torch
+// version of the same function is ops/colpair.py::colpair_plain.
 //
 // What bounds it on an H100: the FP32 pair math. Per in-cutoff pair it
 // spends ~50-80 FP32 operations (rsqrt, a degree-12 Horner, the LJ clamp)
@@ -20,21 +27,24 @@
 // thread per j lane of the current 128-slot slice, so each j row is read
 // once per slice (coalesced, from the [8, S] transposed array) and each
 // i row comes from shared memory; a warp whose 32 lanes hold no in-cutoff
-// pair for an i skips that i's force reduction.
+// pair for an i skips that i's force reduction. The known cost: every slot
+// of every slice of a range is tested, in- or out of the cutoff.
 //
 // The TPU grid ran in order, so it summed the j reactions into one
 // accumulator with read-modify-writes. Here blocks run concurrently: the
-// wrapper zeroes f [S, 3] and the kernel adds both the i-forces (once per
-// cluster, at the end) and the j reactions (once per thread and slice)
+// wrapper zeroes the outputs and the kernel adds both the i-forces (once
+// per cluster, at the end) and the j reactions (once per thread and slice)
 // with float atomics. The summation order therefore changes from run to
 // run at float32 roundoff.
 //
 // Layouts (see ops/colpair.py::ColpairDirect):
-//   rows [S, 8] f32: x, y, z, q*sqrt(kC), sigma/2, 2*sqrt(eps), couple
-//        mask, exclusion group id + 1 (0 = padded slot, parked at 1e6 A)
-//   pT   [8, S] f32: rows transposed (the j side)
-//   wl   [NC, wl_w] i32: per cluster up to wl_w/3 entries (lo, hi, code),
-//        each inside one 128-slot slice starting at (lo / 128) * 128;
+//   rows [NC*64, 8] f32: x, y, z, q*sqrt(kC), sigma/2, 2*sqrt(eps), couple
+//        mask, exclusion group id + 1 (0 = padded slot, parked at 1e6 A);
+//        the i rows, slot i_base + r of the j array (i_base = 0 and
+//        rows = the whole state outside the shard variant)
+//   pT   [8, S] f32: the j array transposed (S j slots)
+//   wl   [NC, wl_w] i32: per cluster up to wl_w/3 entries (lo, hi, code)
+//        in j slots; the slices of an entry start at (lo / 128) * 128;
 //        code holds (s + 1) per axis in 2 bits, s in {-1, 0, 1} box lengths
 //   nw   [NC] i32 entries per cluster
 //   box  [3] f32 box extents
@@ -49,7 +59,9 @@
 // ALCH keeps the plain version's op order where rounding could part the
 // two: soft_c and r2s + soft_c without contraction, 1/(a s6 + 1) as an
 // IEEE division (no --use_fast_math anywhere).
-//   f    [S, 3] f32 out, zeroed by the caller
+//   f_i  [NC*64, 3] f32 out: i-forces, zeroed by the caller
+//   f_j  [S, 3] f32 out: j reactions, zeroed by the caller (the same
+//        buffer as f_i outside the shard variant)
 //   e    [NC, 2] f32 out: per-cluster LJ and Coulomb energies
 #include <cuda_runtime.h>
 
@@ -68,8 +80,8 @@ colpair_kernel(const int* __restrict__ wl, int wl_w,
                const int* __restrict__ nw, const float* __restrict__ rows,
                const float* __restrict__ pT, int S,
                const float* __restrict__ box, const float* __restrict__ prm,
-               const float* __restrict__ cpl, float* __restrict__ f,
-               float* __restrict__ e_out) {
+               const float* __restrict__ cpl, int i_base, float* f_i,
+               float* f_j, float* __restrict__ e_out) {
   constexpr bool KPOLY = !WANT_E && MODE != MODE_LJ && !ALCH;
   __shared__ float s_x[ICL], s_y[ICL], s_z[ICL], s_q[ICL], s_sh[ICL],
       s_se[ICL], s_g[ICL], s_cm[ICL];
@@ -80,10 +92,10 @@ colpair_kernel(const int* __restrict__ wl, int wl_w,
   const int c = blockIdx.x;
   const int t = threadIdx.x;
   const int lane = t & 31;
-  const int cl_base = c * ICL;
+  const int cl_base = i_base + c * ICL;   // the cluster's first j slot
 
   if (t < ICL) {
-    const float* r = rows + (size_t)(cl_base + t) * 8;
+    const float* r = rows + (size_t)(c * ICL + t) * 8;
     s_x[t] = r[0];
     s_y[t] = r[1];
     s_z[t] = r[2];
@@ -119,130 +131,136 @@ colpair_kernel(const int* __restrict__ wl, int wl_w,
     const float shx = (float)((code & 3) - 1) * lx;
     const float shy = (float)(((code >> 2) & 3) - 1) * ly;
     const float shz = (float)(((code >> 4) & 3) - 1) * lz;
-    const int gid = ((lo >> 7) << 7) + t;
     // the triangle bound applies only to the range overlapping this
-    // cluster's own slots (other ranges were clamped at rebuild)
+    // cluster's own slots (other ranges were clamped at rebuild; in the
+    // shard variant a halo range can sit below the cluster in local slots
+    // while it lies above it globally)
     const bool own = (lo < cl_base + ICL) && (hi > cl_base);
-    const bool in_run = gid >= lo && gid < hi && gid < S;
-    float jx = 0.f, jy = 0.f, jz = 0.f, jq = 0.f, jsh = 0.f, jse = 0.f;
-    float gj = 0.f, jcm = 0.f;
-    if (in_run) {
-      jx = pT[gid] + shx;
-      jy = pT[S + gid] + shy;
-      jz = pT[2 * S + gid] + shz;
-      jq = pT[3 * S + gid];
-      jsh = pT[4 * S + gid];
-      jse = pT[5 * S + gid];
-      if (ALCH) jcm = pT[6 * S + gid];
-      gj = pT[7 * S + gid];
-    }
-    const bool is_wj = WFILT && gj >= wlo && gj < whi;
-    float fjx = 0.f, fjy = 0.f, fjz = 0.f;
-    bool any_j = false;
+    const int s_end = (hi + LANES - 1) >> 7;
+    for (int sl = lo >> 7; sl < s_end; ++sl) {   // once per per-slice entry
+      const int gid = (sl << 7) + t;
+      const bool in_run = gid >= lo && gid < hi && gid < S;
+      float jx = 0.f, jy = 0.f, jz = 0.f, jq = 0.f, jsh = 0.f, jse = 0.f;
+      float gj = 0.f, jcm = 0.f;
+      if (in_run) {
+        jx = pT[gid] + shx;
+        jy = pT[S + gid] + shy;
+        jz = pT[2 * S + gid] + shz;
+        jq = pT[3 * S + gid];
+        jsh = pT[4 * S + gid];
+        jse = pT[5 * S + gid];
+        if (ALCH) jcm = pT[6 * S + gid];
+        gj = pT[7 * S + gid];
+      }
+      const bool is_wj = WFILT && gj >= wlo && gj < whi;
+      float fjx = 0.f, fjy = 0.f, fjz = 0.f;
+      bool any_j = false;
 
-    for (int i = 0; i < ICL; ++i) {
-      const float gi = s_g[i];
-      bool ok = in_run && (!own || gid > cl_base + i) && gj != gi;
-      if (WFILT) ok = ok && (is_wj || (gi >= wlo && gi < whi));
-      const float dx = s_x[i] - jx;
-      const float dy = s_y[i] - jy;
-      const float dz = s_z[i] - jz;
-      const float r2 = dx * dx + dy * dy + dz * dz;
-      ok = ok && r2 < rc2;
-      float c2 = 0.f;
-      if (ok) {
-        const float r2s = fminf(fmaxf(r2, r2_min), rc2);
-        const float inv_r = rsqrtf(r2s);
-        const float inv_r2 = inv_r * inv_r;
-        float dlj = 0.f, dc = 0.f;
-        // softcore scales: alch = 1 - is_alch (1 - couple) per pair; the
-        // sigma lanes are read in 'coul' mode too (SC_SIG2_MIN floors them)
-        float alch = 1.f, a_lj = 0.f, inv_rc = inv_r;
-        if (ALCH) {
-          const float ci = s_cm[i];
-          const float is_alch =
-              __fsub_rn(__fadd_rn(ci, jcm), __fmul_rn(__fmul_rn(2.f, ci), jcm));
-          alch = __fsub_rn(1.f, __fmul_rn(is_alch, omc));
-          a_lj = __fmul_rn(sc_alpha, __fsub_rn(1.f, alch));
-          const float sigsc = s_sh[i] + jsh;
-          const float soft_c =
-              __fmul_rn(fmaxf(__fmul_rn(sigsc, sigsc), sc_sig2_min), a_lj);
-          inv_rc = rsqrtf(__fadd_rn(r2s, soft_c));
-        }
-        if (MODE != MODE_COUL) {
-          const float sig = s_sh[i] + jsh;        // inputs are sigma/2
-          float eps4 = s_se[i] * jse;             // inputs are 2 sqrt(eps)
-          if (ALCH) eps4 = eps4 * alch;
-          const float s2_raw = sig * sig * inv_r2;
-          const float u = fminf(fmaxf(s2_raw - s2_lo, 0.f), s2_w);
-          const float s2 = fminf(s2_raw, s2_hi) - u * u * s2_half_inv_w;
-          const float gp = 1.f - u * s2_inv_w;
-          float s6 = s2 * s2 * s2;
+      for (int i = 0; i < ICL; ++i) {
+        const float gi = s_g[i];
+        bool ok = in_run && (!own || gid > cl_base + i) && gj != gi;
+        if (WFILT) ok = ok && (is_wj || (gi >= wlo && gi < whi));
+        const float dx = s_x[i] - jx;
+        const float dy = s_y[i] - jy;
+        const float dz = s_z[i] - jz;
+        const float r2 = dx * dx + dy * dy + dz * dz;
+        ok = ok && r2 < rc2;
+        float c2 = 0.f;
+        if (ok) {
+          const float r2s = fminf(fmaxf(r2, r2_min), rc2);
+          const float inv_r = rsqrtf(r2s);
+          const float inv_r2 = inv_r * inv_r;
+          float dlj = 0.f, dc = 0.f;
+          // softcore scales: alch = 1 - is_alch (1 - couple) per pair; the
+          // sigma lanes are read in 'coul' mode too (SC_SIG2_MIN floors them)
+          float alch = 1.f, a_lj = 0.f, inv_rc = inv_r;
           if (ALCH) {
-            // Beutler: V = eps4 (inv^2 - inv), inv = s6 / (a s6 + 1)
-            const float invd =
-                __fdiv_rn(1.f, __fadd_rn(__fmul_rn(a_lj, s6), 1.f));
-            s6 = s6 * invd;
-            dlj = eps4 * inv_r2 * (gp * s2_raw) * (s2 * s2) * (invd * invd) *
-                  (3.f - 6.f * s6);
-          } else {
-            dlj = eps4 * inv_r2 * (gp * s2_raw) * (s2 * s2) * (3.f - 6.f * s6);
+            const float ci = s_cm[i];
+            const float is_alch = __fsub_rn(
+                __fadd_rn(ci, jcm), __fmul_rn(__fmul_rn(2.f, ci), jcm));
+            alch = __fsub_rn(1.f, __fmul_rn(is_alch, omc));
+            a_lj = __fmul_rn(sc_alpha, __fsub_rn(1.f, alch));
+            const float sigsc = s_sh[i] + jsh;
+            const float soft_c =
+                __fmul_rn(fmaxf(__fmul_rn(sigsc, sigsc), sc_sig2_min), a_lj);
+            inv_rc = rsqrtf(__fadd_rn(r2s, soft_c));
           }
-          if (WANT_E) elj_acc += eps4 * (s6 * s6 - s6);
-        }
-        if (MODE != MODE_LJ) {
-          float kqq = s_q[i] * jq;                // inputs are q sqrt(kC)
-          if (ALCH) kqq = kqq * alch;
-          if (KPOLY) {
-            const float tt = (r2s * inv_r) * kscale - 1.f;
-            float kk = s_c[24 + n_kp - 1];
-            for (int m = n_kp - 2; m >= 0; --m) kk = kk * tt + s_c[24 + m];
-            dc = -kqq * (kk * (inv_r2 * inv_r));
-          } else {
-            const float x = beta * (r2s * inv_r);
-            const float ex = expf(-x * x);
-            float g = s_c[n_ex - 1];
-            for (int m = n_ex - 2; m >= 0; --m) g = g * x + s_c[m];
-            const float erfc_v = g * ex;
+          if (MODE != MODE_COUL) {
+            const float sig = s_sh[i] + jsh;        // inputs are sigma/2
+            float eps4 = s_se[i] * jse;             // inputs are 2 sqrt(eps)
+            if (ALCH) eps4 = eps4 * alch;
+            const float s2_raw = sig * sig * inv_r2;
+            const float u = fminf(fmaxf(s2_raw - s2_lo, 0.f), s2_w);
+            const float s2 = fminf(s2_raw, s2_hi) - u * u * s2_half_inv_w;
+            const float gp = 1.f - u * s2_inv_w;
+            float s6 = s2 * s2 * s2;
             if (ALCH) {
-              // d/dr2 of erfc(beta r) / r_sc, r_sc^2 = r^2 + soft_c
-              dc = -kqq * (c_ex * ex * inv_r * inv_rc +
-                           0.5f * erfc_v * inv_rc * inv_rc * inv_rc);
+              // Beutler: V = eps4 (inv^2 - inv), inv = s6 / (a s6 + 1)
+              const float invd =
+                  __fdiv_rn(1.f, __fadd_rn(__fmul_rn(a_lj, s6), 1.f));
+              s6 = s6 * invd;
+              dlj = eps4 * inv_r2 * (gp * s2_raw) * (s2 * s2) * (invd * invd) *
+                    (3.f - 6.f * s6);
             } else {
-              dc = -kqq * inv_r2 * (0.5f * erfc_v * inv_r + c_ex * ex);
+              dlj = eps4 * inv_r2 * (gp * s2_raw) * (s2 * s2) *
+                    (3.f - 6.f * s6);
             }
-            if (WANT_E) ec_acc += kqq * erfc_v * inv_rc;
+            if (WANT_E) elj_acc += eps4 * (s6 * s6 - s6);
+          }
+          if (MODE != MODE_LJ) {
+            float kqq = s_q[i] * jq;                // inputs are q sqrt(kC)
+            if (ALCH) kqq = kqq * alch;
+            if (KPOLY) {
+              const float tt = (r2s * inv_r) * kscale - 1.f;
+              float kk = s_c[24 + n_kp - 1];
+              for (int m = n_kp - 2; m >= 0; --m) kk = kk * tt + s_c[24 + m];
+              dc = -kqq * (kk * (inv_r2 * inv_r));
+            } else {
+              const float x = beta * (r2s * inv_r);
+              const float ex = expf(-x * x);
+              float g = s_c[n_ex - 1];
+              for (int m = n_ex - 2; m >= 0; --m) g = g * x + s_c[m];
+              const float erfc_v = g * ex;
+              if (ALCH) {
+                // d/dr2 of erfc(beta r) / r_sc, r_sc^2 = r^2 + soft_c
+                dc = -kqq * (c_ex * ex * inv_r * inv_rc +
+                             0.5f * erfc_v * inv_rc * inv_rc * inv_rc);
+              } else {
+                dc = -kqq * inv_r2 * (0.5f * erfc_v * inv_r + c_ex * ex);
+              }
+              if (WANT_E) ec_acc += kqq * erfc_v * inv_rc;
+            }
+          }
+          c2 = 2.f * (dlj + dc);
+          any_j = true;
+        }
+        const float px = c2 * dx, py = c2 * dy, pz = c2 * dz;
+        fjx += px;
+        fjy += py;
+        fjz += pz;
+        // i-force: -sum over j lanes, one warp reduction per i that has a
+        // pair in this warp
+        if (__any_sync(FULL_MASK, ok)) {
+          float sx = px, sy = py, sz = pz;
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) {
+            sx += __shfl_xor_sync(FULL_MASK, sx, o);
+            sy += __shfl_xor_sync(FULL_MASK, sy, o);
+            sz += __shfl_xor_sync(FULL_MASK, sz, o);
+          }
+          if (lane == 0) {
+            atomicAdd(&s_f[0][i], -sx);
+            atomicAdd(&s_f[1][i], -sy);
+            atomicAdd(&s_f[2][i], -sz);
           }
         }
-        c2 = 2.f * (dlj + dc);
-        any_j = true;
       }
-      const float px = c2 * dx, py = c2 * dy, pz = c2 * dz;
-      fjx += px;
-      fjy += py;
-      fjz += pz;
-      // i-force: -sum over j lanes, one warp reduction per i that has a
-      // pair in this warp
-      if (__any_sync(FULL_MASK, ok)) {
-        float sx = px, sy = py, sz = pz;
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-          sx += __shfl_xor_sync(FULL_MASK, sx, o);
-          sy += __shfl_xor_sync(FULL_MASK, sy, o);
-          sz += __shfl_xor_sync(FULL_MASK, sz, o);
-        }
-        if (lane == 0) {
-          atomicAdd(&s_f[0][i], -sx);
-          atomicAdd(&s_f[1][i], -sy);
-          atomicAdd(&s_f[2][i], -sz);
-        }
+      if (any_j) {                                  // j reaction
+        atomicAdd(&f_j[(size_t)gid * 3 + 0], fjx);
+        atomicAdd(&f_j[(size_t)gid * 3 + 1], fjy);
+        atomicAdd(&f_j[(size_t)gid * 3 + 2], fjz);
       }
-    }
-    if (any_j) {                                  // j reaction
-      atomicAdd(&f[(size_t)gid * 3 + 0], fjx);
-      atomicAdd(&f[(size_t)gid * 3 + 1], fjy);
-      atomicAdd(&f[(size_t)gid * 3 + 2], fjz);
-    }
+    }                                           // slice loop
   }
 
   if (WANT_E) {
@@ -259,7 +277,7 @@ colpair_kernel(const int* __restrict__ wl, int wl_w,
   __syncthreads();
   for (int k = t; k < 3 * ICL; k += LANES) {
     const int comp = k / ICL, i = k - comp * ICL;
-    atomicAdd(&f[(size_t)(cl_base + i) * 3 + comp], s_f[comp][i]);
+    atomicAdd(&f_i[(size_t)(c * ICL + i) * 3 + comp], s_f[comp][i]);
   }
   if (WANT_E && t == 0) {
     e_out[2 * c] = s_e[0];
@@ -268,9 +286,9 @@ colpair_kernel(const int* __restrict__ wl, int wl_w,
 }
 
 struct Args {
-  int nc, wl_w, S;
+  int nc, wl_w, S, i_base;
   const void *wl, *nw, *rows, *pT, *box, *prm, *cpl;
-  void *f, *e;
+  void *f_i, *f_j, *e;
   cudaStream_t st;
 };
 
@@ -279,7 +297,8 @@ void launch(const Args& a) {
   colpair_kernel<MODE, WANT_E, WFILT, ALCH><<<a.nc, LANES, 0, a.st>>>(
       (const int*)a.wl, a.wl_w, (const int*)a.nw, (const float*)a.rows,
       (const float*)a.pT, a.S, (const float*)a.box, (const float*)a.prm,
-      (const float*)a.cpl, (float*)a.f, (float*)a.e);
+      (const float*)a.cpl, a.i_base, (float*)a.f_i, (float*)a.f_j,
+      (float*)a.e);
 }
 
 template <int MODE, bool ALCH>
@@ -301,17 +320,20 @@ void launch_flags(int want_energy, int water_filter, const Args& a) {
 
 // Launches on `stream`, allocates nothing, returns cudaGetLastError().
 // alch selects the has_alch instances (modes full and coul only; `cpl`
-// points at the couple scalar and is not read otherwise).
+// points at the couple scalar and is not read otherwise). S is the j
+// array's slot count, i_base the j slot of the first i row; f_i and f_j
+// may be the same buffer (then S == nc * 64 and i_base == 0).
 extern "C" int colpair_launch(int mode, int want_energy, int water_filter,
-                              int alch, int nc, int wl_w, int S,
+                              int alch, int nc, int wl_w, int S, int i_base,
                               const void* wl, const void* nw,
                               const void* rows, const void* pT,
                               const void* box, const void* prm,
-                              const void* cpl, void* f, void* e,
+                              const void* cpl, void* f_i, void* f_j, void* e,
                               void* stream) {
-  const Args a{nc, wl_w, S, wl, nw, rows, pT, box, prm, cpl, f, e,
-               (cudaStream_t)stream};
+  const Args a{nc, wl_w, S, i_base, wl, nw, rows, pT, box, prm, cpl,
+               f_i, f_j, e, (cudaStream_t)stream};
   if (nc <= 0) return (int)cudaGetLastError();
+  if (i_base < 0 || i_base + nc * ICL > S) return (int)cudaErrorInvalidValue;
   if (alch && cpl == nullptr) return (int)cudaErrorInvalidValue;
   switch (mode) {
     case MODE_LJ:

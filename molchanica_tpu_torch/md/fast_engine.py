@@ -78,7 +78,9 @@ class ColpairOverflowError(RuntimeError):
     """A rebuild exceeded a planned table capacity (window slice entries or
     sort columns). step() restores the last good state, replans (doubling
     the per-slice window capacity only when the window tables overflowed)
-    and resumes; callers see this only when the retry budget runs out."""
+    and resumes; callers see this only when the retry budget runs out, or
+    at once when range tables (per_slice_k = 0) overflow: they cannot
+    widen."""
 
     def __init__(self, msg, good_state=None, steps_good=0, elen_good=0,
                  window=True):
@@ -324,12 +326,16 @@ class FastSim:
         grid = cfg.pme_grid or default_grid6(box_np, self.beta)
         self._recip = make_pme3_recip_fn(grid, self.beta, device=dev)
 
-        psk = per_slice_k or PER_SLICE_K
+        # window tables: per-slice with per_slice_k entries per cluster, or
+        # at per_slice_k = 0 range tables of plan.w_max entries, whose
+        # kernels walk the slices of each range
+        psk = PER_SLICE_K if per_slice_k is None else int(per_slice_k)
         self._psk = psk
+        rt = psk == 0
         # the monolithic triangular kernel: the direct sum when the species
         # split does not apply (no water, or no LJ/charge role split)
         self._direct = {we: ColpairDirect(self.plan, want_energy=we,
-                                          has_alch=has_alch)
+                                          has_alch=has_alch, range_tables=rt)
                         for we in (True, False)}
 
         # ---- species-split direct path ----
@@ -379,9 +385,10 @@ class FastSim:
                 mode_L = "full" if has_solute else "lj"
                 kernels = {we: dict(
                     L=ColpairDirect(plan_L, want_energy=we, mode=mode_L,
-                                    has_alch=has_alch),
+                                    has_alch=has_alch, range_tables=rt),
                     Q=ColpairDirect(plan_Q, want_energy=we, mode="coul",
-                                    water_filter=wfilt, has_alch=has_alch))
+                                    water_filter=wfilt, has_alch=has_alch,
+                                    range_tables=rt))
                     for we in (True, False)}
                 self._split = dict(
                     S_L=S_L, S_Q=S_Q, plan_L=plan_L, plan_Q=plan_Q,
@@ -1003,9 +1010,10 @@ class FastSim:
         movable site moves max_disp A along its force) with the constraint
         projection after every move, neighbor_rebuild_every moves per
         rebuild, n_iters rounded up to whole rebuild periods. A table
-        overflow restores the start state, replans (widening the window
-        tables only when they overflowed) and redoes the quench, up to 5
-        attempts; an energy from truncated tables is never returned.
+        overflow restores the start state, replans (widening per-slice
+        window tables only when they overflowed; a range-table overflow
+        raises) and redoes the quench, up to 5 attempts; an energy from
+        truncated tables is never returned.
         Returns the potential energy before the last move."""
         k = self.cfg.neighbor_rebuild_every
         snap = self.state
@@ -1021,10 +1029,11 @@ class FastSim:
             if ovf == 0:
                 break
             window = bool(ovf >> 15)
-            if attempt == 4:
+            if attempt == 4 or (window and not self._psk):
                 raise ColpairOverflowError(
                     f"minimize(): overflow (col={ovf & 0x7FFF}, "
-                    f"win={ovf >> 15}) persists after the replan budget")
+                    f"win={ovf >> 15}) persists after the replan budget "
+                    f"or overflows range tables")
             self.state = snap.replace(
                 overflow=torch.zeros_like(snap.overflow))
             self._replan(per_slice_k=2 * self._psk if window else None)
@@ -1056,9 +1065,10 @@ class FastSim:
     def step(self, dt_ps: float, n_steps: int = 1, record_energy=False,
              force_cap=None):
         """One MD run request. Recovers from table overflow at period
-        granularity: restore the last good state, widen the window tables
-        only if they overflowed, replan, resume. Simulated time is credited
-        only for completed steps; an exhausted retry budget raises.
+        granularity: restore the last good state, widen per-slice window
+        tables only if they overflowed, replan, resume. Simulated time is
+        credited only for completed steps; an exhausted retry budget, or a
+        window overflow of range tables, raises (the state restored).
         Returns the per-step energies when `record_energy`."""
         energies = []
         completed = 0
@@ -1077,7 +1087,7 @@ class FastSim:
                             overflow=torch.zeros_like(ov.good_state.overflow))
                         completed += ov.steps_good
                         del energies[ov.elen_good:]
-                        if attempt >= 5:
+                        if attempt >= 5 or (ov.window and not self._psk):
                             raise
                         self._replan(per_slice_k=2 * self._psk
                                      if ov.window else None)

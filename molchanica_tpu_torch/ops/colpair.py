@@ -6,16 +6,20 @@ The state lives sorted by (xy column, z). Atoms are binned into xy columns
 at least rc + skin wide and z-ordered within each column; every column run
 is padded to a multiple of ICL = 64 slots, so each 64-slot i-cluster is
 column-pure and its j-neighbourhood is a set of slot ranges in the 3x3
-column window. The window table lists, per cluster, up to `per_slice_k`
-entries (lo, hi, code): a [lo, hi) slot range inside one 128-slot slice
-plus the periodic x/y/z shift baked into `code` (2 bits per axis, value
-s + 1 for s in {-1, 0, 1} box lengths), so the kernel needs no per-pair
-minimum image. Tables are triangular: every unordered pair is evaluated
-once, the reaction force goes to j (Newton's third law).
+column window. The window table lists, per cluster, entries (lo, hi,
+code): a [lo, hi) slot range plus the periodic x/y/z shift baked into
+`code` (2 bits per axis, value s + 1 for s in {-1, 0, 1} box lengths), so
+the kernel needs no per-pair minimum image. Per-slice tables hold up to
+`per_slice_k` entries, each inside one 128-slot slice; range tables
+(`per_slice_k=0`) hold up to `plan.w_max` whole ranges, and the kernel
+walks the slices of each. Tables are triangular: every unordered pair is
+evaluated once, the reaction force goes to j (Newton's third law).
 
 `ColpairDirect` is the kernel: the hand-written CUDA kernel in
 csrc/colpair.cu for CUDA tensors, and `colpair_plain` (the same function
-in plain torch) for CPU tensors. `pairlist_colpair_energy` evaluates the
+in plain torch) for CPU tensors. Its shard variant (`local_shape`) runs
+one block of clusters of a sorted state split over several processes
+(parallel/spatial_colpair.py). `pairlist_colpair_energy` evaluates the
 same pair math over an explicit pair list, so excluded pairs that the
 kernel adds are subtracted to float32 roundoff.
 """
@@ -143,6 +147,11 @@ class ColPlan:
     def rc_wb(self) -> float:
         return self.cutoff + self.skin + self.r_blob
 
+    @property
+    def w_max(self) -> int:
+        """Range-table width: up to 3 z-ranges per in-disc column."""
+        return 3 * len(self.offsets)
+
 
 def plan_columns(box_extent, cutoff: float, beta: float, n_atoms_real: int,
                  n_base: int, skin: float = 1.2,
@@ -193,6 +202,61 @@ def _round_up_icl(cnt):
 
 def _col_of(u, n):
     return torch.clamp_max((u * n).long(), n - 1)
+
+
+def make_sort_fn(plan: ColPlan):
+    """Per-site column sort: sort(x, box, atom_mask) -> (perm [S] base ids
+    (n_base = dummy), key_sorted [S], col_start [n_cols+1], overflow).
+
+    Every real site keys by its own (column, z-bin); pads sort to the end.
+    The argsort is stable, so sites of equal key keep their input order.
+    Slot S is a sink for the pads' writes and is cut off. The tables live
+    on x's device."""
+    nx, ny = plan.nx, plan.ny
+    S = plan.n_sorted
+    n_base = plan.n_base
+    n_cols = plan.n_cols
+    zmax = (1 << ZBITS) - 1
+
+    def sort(x, box, atom_mask):
+        dev = x.device
+        u = x / box
+        u = u - torch.floor(u)
+        cx = _col_of(u[:, 0], nx)
+        cy = _col_of(u[:, 1], ny)
+        zb = _col_of(u[:, 2], zmax + 1)
+        real = atom_mask > 0
+        col = torch.where(real, cx * ny + cy, torch.full_like(cx, n_cols))
+        key = (col << ZBITS) | torch.where(real, zb, torch.zeros_like(zb))
+        order = torch.argsort(key, stable=True)
+        col_sorted = col[order]
+        # per-column runs among the real prefix, padded to ICL
+        cs_real = torch.searchsorted(col_sorted.contiguous(),
+                                     _arange(n_cols + 1, dev))
+        pcnt = _round_up_icl(cs_real[1:] - cs_real[:-1])
+        col_start = torch.cat([torch.zeros_like(pcnt[:1]),
+                               torch.cumsum(pcnt, 0)])
+        overflow = torch.clamp_min(col_start[-1] - S, 0)
+        r = _arange(n_base, dev)
+        c_of = torch.clamp(col_sorted, 0, n_cols - 1)
+        valid = r < real.sum()
+        slot = torch.where(valid, torch.clamp(
+            col_start[c_of] + (r - cs_real[c_of]), 0, S - 1),
+            torch.full_like(r, S))
+        perm = torch.full((S + 1,), n_base, dtype=torch.int64, device=dev)
+        perm[slot] = torch.where(valid, order, torch.full_like(order, n_base))
+        perm = perm[:S]
+        pad = n_cols << ZBITS
+        key_sorted = torch.full((S + 1,), pad, dtype=torch.int64, device=dev)
+        key_sorted[slot] = torch.where(valid, key[order],
+                                       torch.full_like(key, pad))
+        slot_col = torch.searchsorted(col_start[1:].contiguous(),
+                                      _arange(S, dev), right=True)
+        pad_key = (torch.clamp_max(slot_col, n_cols - 1) << ZBITS) | zmax
+        key_sorted = torch.where(perm == n_base, pad_key, key_sorted[:S])
+        return perm, key_sorted, col_start, overflow
+
+    return sort
 
 
 def make_anchor_sort_fn(plan: ColPlan, anchor_ids, sizes, atom_mask_base,
@@ -263,15 +327,20 @@ def make_anchor_sort_fn(plan: ColPlan, anchor_ids, sizes, atom_mask_base,
 
 
 def make_window_fn(plan: ColPlan, per_slice_k: int = PER_SLICE_K):
-    """Triangular per-slice window tables.
+    """Triangular window tables.
 
     windows(xs, keys, box, mask_s) -> (wl [NC, 3K] int32,
     nw [NC] int32, overflow): every (column offset, z-range) entry becomes
     its [lo, hi) slot range (lo clamped to the cluster start, so each
-    unordered pair lies in exactly one tile), cut into 128-slot slices.
-    Wrap ranges read the opposite end of the column with the z image baked
-    into the code; overlapping ranges carry different images and at most
-    one image of a pair is inside the cutoff.
+    unordered pair lies in exactly one tile). Wrap ranges read the
+    opposite end of the column with the z image baked into the code;
+    overlapping ranges carry different images and at most one image of a
+    pair is inside the cutoff.
+
+    per_slice_k > 0: every range is cut into 128-slot slice entries, K =
+    per_slice_k, and the overflow is the excess slice count. per_slice_k
+    = 0: the range table, K = plan.w_max whole ranges compacted to the
+    front; the overflow is max(nw) - w_max.
     """
     nx, ny = plan.nx, plan.ny
     n_cols = nx * ny
@@ -375,6 +444,20 @@ def make_window_fn(plan: ColPlan, per_slice_k: int = PER_SLICE_K):
         hi_all = torch.where(good, hi, zero)
         sc_all = torch.where(good, sc_all,
                              torch.full_like(sc_all, 1 | (1 << 2) | (1 << 4)))
+        if not K:
+            # range table: compact the good entries to the front by their
+            # rank among the cluster's good entries
+            W = plan.w_max
+            nw = good.sum(1)
+            pos = torch.cumsum(good.long(), 1) - 1              # [NC, E]
+            sel = good[:, :, None] & (pos[:, :, None]
+                                      == _arange(W, dev)[None, None, :])
+            sel = sel.long()
+            wl = torch.stack([(sel * a[:, :, None]).sum(1)
+                              for a in (lo_all, hi_all, sc_all)], 2)
+            overflow = torch.clamp_min(torch.max(nw) - W, 0)
+            return (wl.reshape(NC, -1).to(torch.int32),
+                    torch.clamp_max(nw, W).to(torch.int32), overflow)
         # cut every range into 128-slot slice entries
         s0 = lo_all >> 7
         nsl = torch.where(good, ((hi_all + 127) >> 7) - s0, zero)
@@ -511,23 +594,30 @@ def _pair_tile(xi, yi, zi, qi, shi, sei, jx, jy, jz, jq, jsh, jse, valid,
     return coeff, e_lj, e_c, dx, dy, dz, mag
 
 
-def colpair_plain(rows, pT, wl, nw, box, cfg, couple=None, stats=None):
+def colpair_plain(rows, pT, wl, nw, box, cfg, couple=None, stats=None,
+                  i_base=None):
     """Plain torch version of the kernel: (f [S, 3], e_lj, e_c).
 
     `couple` (scalar, 1 = fully coupled) is read only by has_alch
-    instances, which require it.
+    instances, which require it. Table entries may span several 128-slot
+    slices (range tables); each is evaluated slice by slice.
+
+    `i_base` selects the shard variant: the i rows are a [NCl*ICL, 8]
+    block of clusters sitting at slot i_base of the j array pT [8, s_j],
+    the tables are in j-array slots, and the result is (f_i [NCl*ICL, 3],
+    f_j [s_j, 3], e_lj, e_c), the reduction left to the caller.
 
     Vectorised over [clusters, slices, 64, 128], chunked over clusters so a
     chunk's tiles stay under CHUNK_ELEMS elements; reactions go back by
     index_add_. A `stats` dict, if given, receives the magnitudes that
     `colpair_parity` scales errors by: "pairs", the count of evaluated
-    (in-cutoff, unmasked) pairs; "f_abs" [S], each site's sum over its
-    pairs of the pair force's term magnitudes (`_pair_tile`'s mag);
-    "e_cluster" [NC], each i-cluster's energy (LJ + Coulomb); "e_abs"
-    [NC], its sum of pair energy term magnitudes.
+    (in-cutoff, unmasked) pairs; "f_abs" [S] (shard: [NCl*ICL + s_j], i
+    rows then j slots), each site's sum over its pairs of the pair force's
+    term magnitudes (`_pair_tile`'s mag); "e_cluster" [NC], each
+    i-cluster's energy (LJ + Coulomb); "e_abs" [NC], its sum of pair
+    energy term magnitudes.
     """
-    S = rows.shape[0]
-    NC = S // ICL
+    NC = rows.shape[0] // ICL
     dev = rows.device
     K = wl.shape[1] // 3
     wl3 = wl.reshape(NC, K, 3).long()
@@ -536,15 +626,43 @@ def colpair_plain(rows, pT, wl, nw, box, cfg, couple=None, stats=None):
         if couple is None:
             raise ValueError("has_alch colpair needs the couple value")
         omc = 1.0 - torch.as_tensor(couple, dtype=rows.dtype, device=dev)
-    f = torch.zeros((S, 3), dtype=rows.dtype, device=dev)
+    zeros3 = lambda n: torch.zeros((n, 3), dtype=rows.dtype, device=dev)
+    if i_base is None:
+        f_i = f_j = zeros3(rows.shape[0])
+        base = 0
+    else:
+        f_i, f_j = zeros3(rows.shape[0]), zeros3(pT.shape[1])
+        base = int(i_base)
     e_lj = torch.zeros((), dtype=rows.dtype, device=dev)
     e_c = torch.zeros((), dtype=rows.dtype, device=dev)
     if stats is not None:
-        stats.update(pairs=0, f_abs=torch.zeros_like(f[:, 0]),
-                     e_cluster=torch.zeros_like(f[:NC, 0]),
-                     e_abs=torch.zeros_like(f[:NC, 0]))
+        fa_i = fa_j = torch.zeros_like(f_j[:, 0])
+        if i_base is not None:
+            fa_i = torch.zeros_like(f_i[:, 0])
+        stats.update(pairs=0, e_cluster=torch.zeros_like(f_i[:NC, 0]),
+                     e_abs=torch.zeros_like(f_i[:NC, 0]))
     lx, ly, lz = box[0], box[1], box[2]
     lanes = _arange(LANES, dev)
+    lo_a, hi_a, code_a = wl3[..., 0], wl3[..., 1], wl3[..., 2]
+    start_a = (lo_a >> 7) << 7
+    # slices per active entry: 1 throughout a per-slice table
+    nsl = torch.where(_arange(K, dev)[None, :] < nw[:, None],
+                      ((hi_a + LANES - 1) >> 7) - (lo_a >> 7),
+                      torch.zeros_like(lo_a))
+    if NC and int(nsl.max()) > 1:
+        # range entries: one row per (entry, slice), compacted per cluster;
+        # each row keeps its entry's lo, hi and code
+        first = torch.cumsum(nsl, 1) - nsl                        # [NC, K]
+        nw = (first + nsl)[:, -1]
+        kk = _arange(int(nw.max()), dev)[None, :]                 # [1, K2]
+        e_of = ((kk[:, None, :] >= (first + nsl)[..., None]).sum(1)
+                .clamp_max(K - 1))                                # [NC, K2]
+        lo_a, hi_a, code_a = (torch.gather(a, 1, e_of)
+                              for a in (lo_a, hi_a, code_a))
+        start_a = torch.where(
+            kk < nw[:, None],
+            ((lo_a >> 7) + kk - torch.gather(first, 1, e_of)) << 7,
+            torch.zeros_like(lo_a))
     kmax_all = int(nw.max()) if NC else 0
     cb = max(1, CHUNK_ELEMS // (max(kmax_all, 1) * ICL * LANES))
     for c0 in range(0, NC, cb):
@@ -553,10 +671,10 @@ def colpair_plain(rows, pT, wl, nw, box, cfg, couple=None, stats=None):
         kmax = int(nwc.max())
         if kmax == 0:
             continue
-        ent = wl3[c0:c1, :kmax]
-        lo, hi, code = ent[..., 0], ent[..., 1], ent[..., 2]
+        lo, hi, code = (a[c0:c1, :kmax] for a in (lo_a, hi_a, code_a))
+        start = start_a[c0:c1, :kmax]
         active = _arange(kmax, dev)[None, :] < nwc[:, None]       # [c, k]
-        gid = ((lo >> 7) << 7)[..., None] + lanes                 # [c,k,L]
+        gid = start[..., None] + lanes                            # [c,k,L]
         pj = pT[:, gid]                                           # [8,c,k,L]
         shx = (((code & 3) - 1).to(rows.dtype) * lx)[..., None]
         shy = ((((code >> 2) & 3) - 1).to(rows.dtype) * ly)[..., None]
@@ -565,7 +683,7 @@ def colpair_plain(rows, pT, wl, nw, box, cfg, couple=None, stats=None):
         ii = lambda k: irow[..., k:k + 1]                         # [c,1,I,1]
         jj = lambda v: v[:, :, None, :]                           # [c,k,1,L]
         # triangle bound only on the range overlapping the own slots
-        cl_base = (_arange(c1 - c0, dev) + c0)[:, None] * ICL     # [c, 1]
+        cl_base = base + (_arange(c1 - c0, dev) + c0)[:, None] * ICL
         islot = cl_base[:, :, None] + _arange(ICL, dev)           # [c,1,I]
         own = (lo < cl_base + ICL) & (hi > cl_base)               # [c, k]
         lo_eff = torch.where(own[..., None],
@@ -593,8 +711,8 @@ def colpair_plain(rows, pT, wl, nw, box, cfg, couple=None, stats=None):
             cfg.kpoly, mags=stats is not None, alch=alch)
         c2 = 2.0 * coeff
         d = torch.stack([c2 * dx, c2 * dy, c2 * dz], -1)          # [c,k,I,L,3]
-        f[c0 * ICL:c1 * ICL] -= d.sum(dim=(1, 3)).reshape(-1, 3)
-        f.index_add_(0, gid.reshape(-1), d.sum(dim=2).reshape(-1, 3))
+        f_i[c0 * ICL:c1 * ICL] -= d.sum(dim=(1, 3)).reshape(-1, 3)
+        f_j.index_add_(0, gid.reshape(-1), d.sum(dim=2).reshape(-1, 3))
         if cfg.want_energy:
             if elj is not None:
                 e_lj = e_lj + elj.sum()
@@ -604,14 +722,17 @@ def colpair_plain(rows, pT, wl, nw, box, cfg, couple=None, stats=None):
             r2 = dx * dx + dy * dy + dz * dz
             stats["pairs"] += int(torch.count_nonzero(jok & (r2 < cfg.rc2)))
             dn = 2.0 * mag[0] * torch.sqrt(r2)                   # [c,k,I,L]
-            stats["f_abs"][c0 * ICL:c1 * ICL] += dn.sum(dim=(1, 3)).reshape(-1)
-            stats["f_abs"].index_add_(0, gid.reshape(-1),
-                                      dn.sum(dim=2).reshape(-1))
+            fa_i[c0 * ICL:c1 * ICL] += dn.sum(dim=(1, 3)).reshape(-1)
+            fa_j.index_add_(0, gid.reshape(-1), dn.sum(dim=2).reshape(-1))
             if cfg.want_energy:
                 stats["e_cluster"][c0:c1] += sum(
                     e.sum(dim=(1, 2, 3)) for e in (elj, ec) if e is not None)
                 stats["e_abs"][c0:c1] += mag[1].sum(dim=(1, 2, 3))
-    return f, e_lj, e_c
+    if stats is not None:
+        stats["f_abs"] = fa_j if i_base is None else torch.cat([fa_i, fa_j])
+    if i_base is None:
+        return f_i, e_lj, e_c
+    return f_i, f_j, e_lj, e_c
 
 
 def colpair_parity(f, e_cluster, f_ref, stats):
@@ -656,27 +777,39 @@ class ColpairDirect:
     rows: [S, 8] f32 sorted rows (x, y, z, q sqrt(kC), sigma/2, 2 sqrt(eps),
           couple_mask, exclusion group id + 1; 0 marks a padded slot)
     pT:   [8, S] f32, the same transposed (the j side)
-    wl:   [NC, 3K] int32 triangular per-slice window entries (lo, hi, code)
+    wl:   [NC, 3K] int32 triangular window entries (lo, hi, code):
+          per-slice, or with `range_tables` the [NC, 3 w_max] range table
     nw:   [NC] int32 entries per cluster
+
+    local_shape=(nc_local, s_local, i_base): the shard variant. rows is
+    the [nc_local*ICL, 8] block of this shard's clusters, sitting at slot
+    i_base of the local j array pT [8, s_local] (own block and halo
+    blocks); the table is in local slots. Returns (f_i [nc_local*ICL, 3],
+    f_j [s_local, 3], e_lj, e_c): the caller reduces the halo reactions.
 
     CUDA tensors launch the hand-written kernel (csrc/colpair.cu); CPU
     tensors take `colpair_plain`. `launches[name]` counts the kernel's
     launches per variant name (e.g. "colpair_coul_wf_force",
-    "colpair_full_alch_force"), across all instances. K-poly Coulomb is on
-    iff force-only and mode != 'lj' and not has_alch. has_alch instances
-    (softcore pairs of the coupled molecule, rows col 6 = couple mask)
-    read `couple` as a 0-d tensor on the rows' device and take mode 'full'
-    or 'coul' (an alchemical solute sits in the L subset, which is then
-    'full').
+    "colpair_full_alch_force", "colpair_coul_wf_range_force",
+    "colpair_full_range_shard_energy"), across all instances. K-poly
+    Coulomb is on iff force-only and mode != 'lj' and not has_alch.
+    has_alch instances (softcore pairs of the coupled molecule, rows col 6
+    = couple mask) read `couple` as a 0-d tensor on the rows' device and
+    take mode 'full' or 'coul' (an alchemical solute sits in the L subset,
+    which is then 'full').
     """
     launches: dict = {}
 
     def __init__(self, plan: ColPlan, want_energy: bool, mode: str = "full",
-                 water_filter=None, has_alch: bool = False):
+                 water_filter=None, has_alch: bool = False,
+                 range_tables: bool = False, local_shape=None):
         if mode not in _MODES:
             raise ValueError(f"unknown colpair mode {mode!r}")
         if has_alch and mode == "lj":
             raise ValueError("has_alch colpair takes mode 'full' or 'coul'")
+        self.w_ent = plan.w_max if range_tables else None
+        self.local_shape = (None if local_shape is None
+                            else tuple(int(v) for v in local_shape))
         kpoly = None
         if not want_energy and mode != "lj" and not has_alch:
             kpoly = (tuple(float(v) for v in plan.kpoly_coeffs),
@@ -691,6 +824,8 @@ class ColpairDirect:
         self.name = "_".join(
             ["colpair", mode] + (["wf"] if water_filter is not None else [])
             + (["alch"] if has_alch else [])
+            + (["range"] if range_tables else [])
+            + (["shard"] if local_shape is not None else [])
             + ["energy" if want_energy else "force"])
         self._params = {}
 
@@ -721,27 +856,36 @@ class ColpairDirect:
         return self._params[device]
 
     def __call__(self, rows, pT, wl, nw, box, couple):
-        S = rows.shape[0]
-        if rows.shape != (S, 8) or pT.shape != (8, S) or S % LANES:
+        ls = self.local_shape
+        n_i = rows.shape[0] if ls is None else ls[0] * ICL
+        s_j = n_i if ls is None else ls[1]
+        if rows.shape != (n_i, 8) or pT.shape != (8, s_j) or s_j % LANES \
+                or n_i % ICL:
             raise ValueError(f"colpair rows {tuple(rows.shape)} / pT "
-                             f"{tuple(pT.shape)}: want [S, 8] / [8, S], "
-                             "S a multiple of 128")
-        if wl.shape[0] != S // ICL or wl.shape[1] % 3 or \
-                nw.shape != (S // ICL,):
+                             f"{tuple(pT.shape)}: want [{n_i}, 8] / "
+                             f"[8, {s_j}], a multiple of 128 j slots")
+        if wl.shape[0] != n_i // ICL or wl.shape[1] % 3 or \
+                nw.shape != (n_i // ICL,) or (
+                    self.w_ent is not None and wl.shape[1] != 3 * self.w_ent):
             raise ValueError("colpair window table does not match rows")
+        i_base = None if ls is None else ls[2]
         if rows.device.type == "cpu":
-            return colpair_plain(rows, pT, wl, nw, box, self.cfg, couple)
-        f, e = colpair_cuda(self.cfg, rows, pT, wl, nw, box,
-                            self.params(rows.device), couple)
+            return colpair_plain(rows, pT, wl, nw, box, self.cfg, couple,
+                                 i_base=i_base)
+        out = colpair_cuda(self.cfg, rows, pT, wl, nw, box,
+                           self.params(rows.device), couple, i_base=i_base)
         ColpairDirect.launches[self.name] = \
             ColpairDirect.launches.get(self.name, 0) + 1
-        return f, e[:, 0].sum(), e[:, 1].sum()
+        e = out[-1]
+        return (*out[:-1], e[:, 0].sum(), e[:, 1].sum())
 
 
 def colpair_cuda(cfg: KernelCfg, rows, pT, wl, nw, box, params,
-                 couple=None):
+                 couple=None, i_base=None):
     """Launch csrc/colpair.cu on the current stream: (f [S, 3], per-cluster
-    energies [NC, 2] = (e_lj, e_c)). The outputs are made here: f zeroed
+    energies [NC, 2] = (e_lj, e_c)); with `i_base` the shard variant,
+    (f_i [NC*ICL, 3], f_j [s_j, 3], e [NC, 2]) for i rows sitting at slot
+    i_base of the j array pT [8, s_j]. The outputs are made here, zeroed
     (the kernel adds i-forces and j reactions with atomics). has_alch
     instances read `couple` through its device pointer (a 0-d float32
     tensor, changed per window and shifted inside dhdl without a host
@@ -751,8 +895,8 @@ def colpair_cuda(cfg: KernelCfg, rows, pT, wl, nw, box, params,
     from ..cuda_build import load_library
 
     dev = rows.device
-    S = rows.shape[0]
-    NC = S // ICL
+    NC = rows.shape[0] // ICL
+    s_j = pT.shape[1]
     for name, t, dt in (("rows", rows, torch.float32),
                         ("pT", pT, torch.float32),
                         ("wl", wl, torch.int32), ("nw", nw, torch.int32),
@@ -763,6 +907,9 @@ def colpair_cuda(cfg: KernelCfg, rows, pT, wl, nw, box, params,
                              f"tensor on {dev}")
     if box.numel() != 3:
         raise ValueError("colpair: box must hold 3 extents")
+    if (0 if i_base is None else i_base) + NC * ICL > s_j or (
+            i_base is None and s_j != rows.shape[0]):
+        raise ValueError("colpair: the i rows do not sit in the j array")
     c_ptr = ctypes.c_void_p(None)
     if cfg.has_alch:
         if couple is None:
@@ -773,18 +920,24 @@ def colpair_cuda(cfg: KernelCfg, rows, pT, wl, nw, box, params,
         couple = couple.contiguous()
         c_ptr = ctypes.c_void_p(couple.data_ptr())
     lib = load_library()
-    f = torch.zeros((S, 3), dtype=torch.float32, device=dev)
+    f_i = torch.zeros((NC * ICL, 3), dtype=torch.float32, device=dev)
+    f_j = f_i if i_base is None else torch.zeros((s_j, 3),
+                                                 dtype=torch.float32,
+                                                 device=dev)
     e = torch.zeros((NC, 2), dtype=torch.float32, device=dev)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     err = lib.colpair_launch(
         _MODES[cfg.mode], int(cfg.want_energy),
         int(cfg.water_filter is not None), int(cfg.has_alch), NC,
-        wl.shape[1], S, ptr(wl), ptr(nw), ptr(rows), ptr(pT), ptr(box),
-        ptr(params), c_ptr, ptr(f), ptr(e),
+        wl.shape[1], s_j, 0 if i_base is None else int(i_base), ptr(wl),
+        ptr(nw), ptr(rows), ptr(pT), ptr(box), ptr(params), c_ptr, ptr(f_i),
+        ptr(f_j), ptr(e),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"colpair kernel launch failed: CUDA error {err}")
-    return f, e
+    if i_base is None:
+        return f_i, e
+    return f_i, f_j, e
 
 
 # ---------------------------------------------------------------------------

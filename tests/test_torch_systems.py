@@ -159,9 +159,9 @@ def test_fast_sim_needs_cuda_unless_cpu_is_asked(systems):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port (MdSim's cell-grid path and the hydration
-    path among them), and chip_smoke, import without loading jax, flax or
-    any molchanica_tpu module."""
+    """Every module of the port (MdSim's cell-grid path, the hydration
+    path and the parallel package among them), and chip_smoke, import
+    without loading jax, flax or any molchanica_tpu module."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import molchanica_tpu_torch as p\n"
@@ -172,7 +172,10 @@ def test_port_imports_no_jax():
         "('jax', 'jaxlib', 'flax', 'molchanica_tpu')]\n"
         "need = ['md.engine', 'md.energy', 'md.constraints', 'md.state', "
         "'ops.direct_force', 'ops.nonbonded', 'ops.pme', 'cuda_build', "
-        "'md.alchemical', 'properties.water_sol', 'molecules.spec_json']\n"
+        "'md.alchemical', 'properties.water_sol', 'molecules.spec_json', "
+        "'ops.pme2', 'parallel', 'parallel.comm', 'parallel.launch', "
+        "'parallel.spatial', 'parallel.spatial_colpair', "
+        "'parallel.dryrun']\n"
         "missing = [m for m in need if 'molchanica_tpu_torch.' + m "
         "not in sys.modules]\n"
         "print(len([m for m in sys.modules "

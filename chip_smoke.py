@@ -5,7 +5,8 @@
 
 Phases, each printed on lines of its own:
   1. the card (nvidia-smi name and power limit) and torch's CUDA version;
-  2. build of the hand-written kernels from csrc/ (one nvcc, sm_90a);
+  2. build of the hand-written kernels from csrc/ (one nvcc per source,
+     started together, sm_90a; linked into one library);
   3. the ~25k-site solvated polyalanine (config 3 of BASELINE.md) from the
      port's own builder, started from the committed eq25k.npz fixture, in
      FastSim with the benchmark's MdConfig;
@@ -54,7 +55,29 @@ Phases, each printed on lines of its own:
      counted per rank; the assembled forces and energies against the
      single-device K1c kernel on the same sorted state;
  17. parallel/dryrun.py::dryrun_multidevice(4, "gloo", "cuda");
- 18. the kernel JSON line, the card line, and the final JSON result line.
+ 18. K1e: FastSim(triangular=False) on config 3 (the symmetric table,
+     one kernel over the master array): a warm-up (--sym-warm; a per-slice
+     table overflow replans there), both symmetric instances against their
+     plain versions on the state's tables, the symmetric against the
+     monolithic triangular kernel on one state and the symmetric against
+     the default split engine, then a timed run(0.002, n, n/2)
+     (--sym-steps) with its two snapshots, launches counted against the
+     force evaluations; then FastSim(per_slice_k=0, triangular=False), its
+     two symmetric range instances, and a short step call;
+ 19. K1e has_alch: FastSim(triangular=False) on the hydration state of
+     phase 13 at couple 0.5, its two instances against their plain
+     versions, 20 steps and one dhdl with launches counted;
+ 20. K1g: the cross variant, the solute subset per-site sorted on the
+     master's column grid against the master array of phase 18's state:
+     kernel against plain, the assembled f_i + f_j against the plain
+     triangular kernel over the pairs with a solute site, 20 driven calls;
+ 21. P: the probe at the script's shapes and at S = 26,624 against
+     probe_plain and the script's loop, then its main() on the card;
+ 22. NPT: FastSim on config 3 with the Berendsen barostat (P 1 bar,
+     tau 2 ps), run(0.002, n, n/2) (--npt-steps); each period's pressure
+     and box, the box moved, T in band, rigid waters, launches = 2 x the
+     force evaluations;
+ 23. the kernel JSON line, the card line, and the final JSON result line.
 An NVT hold (the mean temperature of further FastSim steps near 310 K)
 runs only when --hold N asks for it.
 
@@ -101,6 +124,13 @@ PAIR_OPS_ALCH = {
     ("full", True): 20 + 14 + 30 + 43 + 4 + 3,
     ("coul", True): 20 + 14 + 43 + 3,
 }
+# the symmetric table (K1e) accumulates no j reaction: three adds fewer
+SYM_NO_REACTION_OPS = 3
+K1_REPLACES = "molchanica_tpu/ops/pallas/colpair.py:810"
+# FP32 operations per (i, j) pair of csrc/probe_prefetch.cu: the
+# difference, its square added to the column sum (an FMA), the row sum
+PROBE_PAIR_OPS = 4
+PROBE_REPLACES = "scripts/probe_prefetch.py:32"
 # FP32 operations per in-cutoff pair of csrc/direct_force.cu (same
 # counting): geometry and r^2 clamp 10, softcore LJ with the clip 38, A&S
 # Coulomb 30, force accumulation 7
@@ -147,6 +177,51 @@ N_RANGE_STEPS = 100
 N_SHARD = 8
 N_SHARD_CALLS = 20
 SHARD_TOL_F_MAX = 1e-4
+# phases 18-22: the symmetric FastSim (warm-up, timed run with two
+# snapshots), its range tables, its has_alch instances on the hydration
+# system (steps and one dhdl), the cross variant (driven calls), the
+# probe (the script's shapes, and S = 26,624 for 416 clusters), NPT
+N_SYM_WARM = 20
+N_SYM_STEPS = 100
+N_SYM_RANGE_STEPS = 20
+N_SYM_ALCH_STEPS = 20
+N_CROSS_CALLS = 20
+PROBE_BIG = (416, 8, 26624)
+N_NPT_STEPS = 200
+# Berendsen tau (ps): the reference's FastSim NPT test couples once per
+# 10 steps of 1 fs at tau 0.5 ps, dt_eff / tau = 0.02 per application; at
+# config 3's period of 20 steps of 2 fs the same ratio is tau = 2 ps. At
+# tau = 0.5 (0.08 per period) the pressure swung from -1,847 to -6,882 bar
+# with a growing amplitude over seven periods and the run blew up in the
+# eighth (measured on one H100)
+NPT_TAU = 2.0
+# symmetric against triangular (one state, two tables) and the assembled
+# cross forces against the plain triangular kernel restricted to pairs
+# with a solute site: max|dF| / max|F|
+SYM_TOL_F_MAX = 1e-4
+# The two tables evaluate the same pairs: their float64 plain sums agree
+# per site within SYM_TOL_F64 of the site's pair-term magnitudes. In
+# float32 they part at pairs that cross a box face: the symmetric table
+# evaluates such a pair from both of its sites, each adding the box length
+# to the other's coordinate in float32, and at the stiff excluded solute
+# pairs near the C1 clamp that rounding puts a site up to ~1.2e-5 of its
+# magnitudes off the float64 sum. Config 3 on one H100 (phase 18's own
+# prints): 1.154e-5 at eq25k's state, where the split engine's direct
+# force sits 1.8e-7 off and the rest of the two engines' forces agree
+# exactly; 8.4e-6 after the warm-up (a solute site 0.16 A from the face),
+# against 1.6e-6 for the triangular kernel. That is above the per-site
+# kernel gate, so a float32 comparison across the tables (kernels, or the
+# symmetric against the split engine) is held per site to twice it,
+# SYM_TOL_F. The gate still sees a fault: phase 18 runs the symmetric
+# kernel with one cluster's own-slot entries emptied and with a 1e-3
+# error in water O's well depth, and each must exceed SYM_TOL_F
+SYM_TOL_F64, SYM_TOL_F = 1e-9, 2e-5
+# the symmetric table's ordered pairs against twice the triangular table's
+# unordered ones: a pair across a box face whose float32 r^2 lies within
+# roundoff of the cutoff may count from one of its sites only
+SYM_PAIRS_SLACK = 1e-6
+# rigid waters after the NPT run: |d(O-H) - r_OH| (A)
+RIGID_TOL = 5e-3
 
 
 def say(*a):
@@ -176,86 +251,132 @@ def cuda_ms(fn, n):
     return a.elapsed_time(b) / n
 
 
-def kernel_parity(sim, torch, couples=(None,)):
-    """Each colpair instance of the path vs colpair_plain on the state's
-    tables, at each coupling in `couples` (None: the state's own, for the
-    instances without has_alch); timed at the first. Returns one JSON
-    kernel entry per instance, with the worst errors over `couples`."""
+def engine_instances(sim, torch):
+    """(kernel, rows, wl, nw) of every colpair instance the engine runs, on
+    its state's tables: the L and Q subsets of the species split (force-only
+    and energy each), or the master table of the monolithic kernel."""
+    st = sim.state
+    x_v = sim._apply_vsites(st.x, st.vm_of, st.box)
+    if sim._split is None:
+        rows = torch.cat([x_v, st.props], 1)
+        return [(sim._direct[we], rows, st.wl, st.nw) for we in (False, True)]
+    sp = st.split
+    x_ext = torch.cat([x_v, torch.full((1, 3), 1.0e6, device=x_v.device)])
+    out = []
+    for key in ("l", "q"):
+        rows = torch.cat([x_ext[sp[f"idx_{key}"]], sp[f"props_{key}"]], 1)
+        for we in (False, True):
+            out.append((sim._split["kernels"][we][key.upper()], rows,
+                        sp[f"wl_{key}"], sp[f"nw_{key}"]))
+    return out
+
+
+def pair_ops(cfg) -> int:
+    """FP32 operations per evaluated pair of a colpair instance."""
+    table = PAIR_OPS_ALCH if cfg.has_alch else PAIR_OPS
+    ops = table[(cfg.mode, cfg.want_energy)]
+    if not cfg.triangular and cfg.cross is None:
+        ops -= SYM_NO_REACTION_OPS
+    return ops
+
+
+def instance_parity(kern, rows, pT, wl, nw, box, torch, couples=(None,),
+                    couple0=None):
+    """One colpair instance against colpair_plain on the same inputs, at
+    each coupling in `couples` (None: `couple0`, the state's own); timed
+    at the first. Two-output instances (cross) are compared over their i
+    rows and j slots together. Returns its JSON kernel entry, with the
+    worst errors over `couples` and the plain run's stats."""
     from molchanica_tpu_torch.ops.colpair import (ICL, colpair_cuda,
                                                   colpair_parity,
                                                   colpair_plain)
 
-    st = sim.state
-    sp = st.split
-    dev = st.x.device
-    x_ext = torch.cat([st.x, torch.full((1, 3), 1.0e6, device=dev)])
-    cpls = [st.couple if c is None else
+    dev = rows.device
+    cpls = [couple0 if c is None else
             torch.tensor(c, dtype=torch.float32, device=dev) for c in couples]
-    entries = []
-    for key in ("l", "q"):
-        rows = torch.cat([x_ext[sp[f"idx_{key}"]], sp[f"props_{key}"]], 1)
-        pT = rows.T.contiguous()
-        wl, nw = sp[f"wl_{key}"], sp[f"nw_{key}"]
-        S = rows.shape[0]
-        for we in (False, True):
-            kern = sim._split["kernels"][we][key.upper()]
-            worst = dict(err=0.0, rel_f=0.0, rel_e=0.0)
-            for c, cpl in zip(couples, cpls):
-                f_k, e_k = colpair_cuda(kern.cfg, rows, pT, wl, nw, st.box,
-                                        kern.params(dev), cpl)
-                stats = {}
-                f_p, elj_p, ec_p = colpair_plain(rows, pT, wl, nw, st.box,
-                                                 kern.cfg, cpl, stats=stats)
-                torch.cuda.synchronize()
-                rel_f, rel_e = colpair_parity(f_k, e_k.sum(1), f_p, stats)
-                err = float((f_k - f_p).abs().max())
-                f_max = float(f_p.abs().max())
-                e_kern = float(e_k.sum())
-                e_plain = float(elj_p + ec_p)
-                rel_tot = abs(e_kern - e_plain) / max(abs(e_plain), 1e-30)
-                at = "" if c is None else f" couple={c:g}"
-                say(f"[parity] {kern.name}{at} S={S} NC={S // ICL} "
-                    f"max_entries={int(nw.max())} pairs={stats['pairs']} "
-                    f"max|dF|/max|F|={err / f_max:.3e} (max|dF|={err:.4e}, "
-                    f"max|F|={f_max:.4e}) e_kernel={e_kern:.6f} "
-                    f"e_plain={e_plain:.6f} rel_e={rel_tot:.3e} "
-                    f"(limits {KERNEL_TOL_F_MAX:g}, {KERNEL_TOL_E_TOT:g})")
-                say(f"[parity] {kern.name}{at} per site max|dF|/scale="
-                    f"{rel_f:.3e}, per cluster |dE|/scale={rel_e:.3e} "
-                    f"(limits {KERNEL_TOL_F:g}, {KERNEL_TOL_E:g})")
-                if not (err / f_max < KERNEL_TOL_F_MAX
-                        and rel_tot < KERNEL_TOL_E_TOT
-                        and rel_f < KERNEL_TOL_F and rel_e < KERNEL_TOL_E):
-                    raise SystemExit(f"{kern.name}{at}: kernel and plain "
-                                     "disagree")
-                worst = dict(err=max(worst["err"], err),
-                             rel_f=max(worst["rel_f"], rel_f),
-                             rel_e=max(worst["rel_e"], rel_e))
-            ms = cuda_ms(lambda: kern(rows, pT, wl, nw, st.box, cpls[0]),
-                         50)
-            plain_ms = cuda_ms(lambda: colpair_plain(
-                rows, pT, wl, nw, st.box, kern.cfg, cpls[0]), 3)
-            table = PAIR_OPS_ALCH if kern.cfg.has_alch else PAIR_OPS
-            ops = stats["pairs"] * table[(kern.cfg.mode, we)]
-            nbytes = (rows.numel() + pT.numel() + wl.numel() + nw.numel()
-                      + 3 + 64 + int(kern.cfg.has_alch)) * 4 \
-                + (S * 3 + (S // ICL) * 2) * 4
-            t_ops = ops / PEAK_FP32 * 1e3
-            t_bytes = nbytes / PEAK_BYTES * 1e3
-            entries.append(dict(
-                name=kern.name, route="cuda",
-                source="molchanica_tpu_torch/csrc/colpair.cu",
-                replaces="molchanica_tpu/ops/pallas/colpair.py:810",
-                launches=0, max_abs_err=worst["err"], ms=ms,
-                plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                library_ms=None, pairs=stats["pairs"], S=S,
-                site_rel_err=worst["rel_f"],
-                cluster_rel_err_e=worst["rel_e"]))
-            say(f"[time] {kern.name}: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.3f} ms, bound {max(t_ops, t_bytes):.5f} ms "
-                f"({entries[-1]['bound_by']})")
-    return entries
+    S = rows.shape[0]
+    worst = dict(err=0.0, rel_f=0.0, rel_e=0.0)
+    for c, cpl in zip(couples, cpls):
+        out_k = colpair_cuda(kern.cfg, rows, pT, wl, nw, box,
+                             kern.params(dev), cpl)
+        stats = {}
+        out_p = colpair_plain(rows, pT, wl, nw, box, kern.cfg, cpl,
+                              stats=stats)
+        torch.cuda.synchronize()
+        f_k, e_k = torch.cat(out_k[:-1]), out_k[-1]
+        f_p, elj_p, ec_p = torch.cat(out_p[:-2]), out_p[-2], out_p[-1]
+        rel_f, rel_e = colpair_parity(f_k, e_k.sum(1), f_p, stats)
+        err = float((f_k - f_p).abs().max())
+        f_max = float(f_p.abs().max())
+        e_kern = float(e_k.sum())
+        e_plain = float(elj_p + ec_p)
+        rel_tot = abs(e_kern - e_plain) / max(abs(e_plain), 1e-30)
+        at = "" if c is None else f" couple={c:g}"
+        say(f"[parity] {kern.name}{at} S={S} NC={S // ICL} "
+            f"max_entries={int(nw.max())} pairs={stats['pairs']} "
+            f"max|dF|/max|F|={err / f_max:.3e} (max|dF|={err:.4e}, "
+            f"max|F|={f_max:.4e}) e_kernel={e_kern:.6f} "
+            f"e_plain={e_plain:.6f} rel_e={rel_tot:.3e} "
+            f"(limits {KERNEL_TOL_F_MAX:g}, {KERNEL_TOL_E_TOT:g})")
+        say(f"[parity] {kern.name}{at} per site max|dF|/scale="
+            f"{rel_f:.3e}, per cluster |dE|/scale={rel_e:.3e} "
+            f"(limits {KERNEL_TOL_F:g}, {KERNEL_TOL_E:g})")
+        if not (err / f_max < KERNEL_TOL_F_MAX
+                and rel_tot < KERNEL_TOL_E_TOT
+                and rel_f < KERNEL_TOL_F and rel_e < KERNEL_TOL_E):
+            raise SystemExit(f"{kern.name}{at}: kernel and plain "
+                             "disagree")
+        worst = dict(err=max(worst["err"], err),
+                     rel_f=max(worst["rel_f"], rel_f),
+                     rel_e=max(worst["rel_e"], rel_e))
+    ms = cuda_ms(lambda: colpair_cuda(kern.cfg, rows, pT, wl, nw, box,
+                                      kern.params(dev), cpls[0]), 50)
+    plain_ms = cuda_ms(lambda: colpair_plain(rows, pT, wl, nw, box,
+                                             kern.cfg, cpls[0]), 3)
+    ops = stats["pairs"] * pair_ops(kern.cfg)
+    sym = not kern.cfg.triangular and kern.cfg.cross is None
+    if sym:
+        # the symmetric table evaluates each unordered pair from both of
+        # its sites; the least work for the same forces and energies is
+        # each pair once, with its reaction (the triangular count)
+        ordered_ops = ops
+        ops = stats["pairs"] / 2 * (pair_ops(kern.cfg) + SYM_NO_REACTION_OPS)
+    two_out = len(out_k) == 3
+    nbytes = (rows.numel() + pT.numel() + wl.numel() + nw.numel()
+              + 3 + 64 + int(kern.cfg.has_alch)) * 4 \
+        + (S * 3 + (pT.shape[1] * 3 if two_out else 0)
+           + (S // ICL) * 2) * 4
+    t_ops = ops / PEAK_FP32 * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    entry = dict(
+        name=kern.name, route="cuda",
+        source="molchanica_tpu_torch/csrc/colpair.cu", replaces=K1_REPLACES,
+        launches=0, max_abs_err=worst["err"], ms=ms, plain_ms=plain_ms,
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=None, pairs=stats["pairs"], S=S, bytes=nbytes,
+        site_rel_err=worst["rel_f"], cluster_rel_err_e=worst["rel_e"])
+    if sym:
+        entry.update(ordered_bound_ms=max(ordered_ops / PEAK_FP32 * 1e3,
+                                          t_bytes))
+    say(f"[time] {kern.name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {entry['bound_ms']:.5f} ms ({entry['bound_by']}; "
+        + (f"{stats['pairs'] // 2} unordered pairs x "
+           f"{pair_ops(kern.cfg) + SYM_NO_REACTION_OPS} FP32 ops; the "
+           f"{stats['pairs']} ordered pairs x {pair_ops(kern.cfg)} it "
+           f"evaluates {entry['ordered_bound_ms']:.5f} ms)" if sym else
+           f"{stats['pairs']} pairs x {pair_ops(kern.cfg)} FP32 ops)"))
+    return entry
+
+
+def kernel_parity(sim, torch, couples=(None,)):
+    """Each colpair instance of the engine's path vs colpair_plain on the
+    state's tables, at each coupling in `couples` (None: the state's own,
+    for the instances without has_alch). Returns one JSON kernel entry per
+    instance."""
+    return [instance_parity(kern, rows, rows.T.contiguous(), wl, nw,
+                            sim.state.box, torch, couples, sim.state.couple)
+            for kern, rows, wl, nw in engine_instances(sim, torch)]
 
 
 def engine_parity(build, torch, lam=None, tag="engine"):
@@ -577,25 +698,26 @@ def ti_path(n_equil, n_prod, torch, np):
                          for w in props.windows]), counts
 
 
-def range_path(build0, n_warm, n_steps, torch, np):
-    """Phase 15: FastSim(per_slice_k=0) on config 3. Its four range
-    instances against their plain versions, then step(0.002, n_warm), a
-    timed step(0.002, n_steps) and potential_energy(), launches counted
-    over exactly those calls. Returns (kernel entries, summary)."""
+def range_path(build0, n_warm, n_steps, torch, np, tag="range"):
+    """Phase 15 (and 18's symmetric twin): FastSim(per_slice_k=0) on
+    config 3. Its range instances against their plain versions, then
+    step(0.002, n_warm), a timed step(0.002, n_steps) and
+    potential_energy(), launches counted over exactly those calls.
+    Returns (kernel entries, summary)."""
     from molchanica_tpu_torch.ops.colpair import ColpairDirect
 
     t0 = time.perf_counter()
     sim = build0()
     torch.cuda.synchronize()
-    sp = sim._split
-    say(f"[range] FastSim(per_slice_k=0) init {time.perf_counter() - t0:.1f}"
-        f" s: psk={sim._psk} wl_l {tuple(sim.state.split['wl_l'].shape)} "
-        f"wl_q {tuple(sim.state.split['wl_q'].shape)} (w_max "
-        f"{sp['plan_L'].w_max}), max entries L "
-        f"{int(sim.state.split['nw_l'].max())} Q "
-        f"{int(sim.state.split['nw_q'].max())}")
-    if sim._psk != 0 or sim.state.split["wl_l"].shape[1] != \
-            3 * sp["plan_L"].w_max:
+    inst = engine_instances(sim, torch)
+    w_max = sim.plan.w_max
+    say(f"[{tag}] FastSim(per_slice_k=0) init "
+        f"{time.perf_counter() - t0:.1f} s: psk={sim._psk} tables "
+        + ", ".join(f"{k.name} {tuple(wl.shape)} max entries "
+                    f"{int(nw.max())}" for k, _, wl, nw in inst)
+        + f" (w_max {w_max})")
+    if sim._psk != 0 or any(wl.shape[1] != 3 * w_max
+                            for _, _, wl, _ in inst):
         raise SystemExit("FastSim(per_slice_k=0) did not build range tables")
     entries = kernel_parity(sim, torch)
     ColpairDirect.launches.clear()
@@ -613,19 +735,21 @@ def range_path(build0, n_warm, n_steps, torch, np):
     t_final = sim.temperature()
     finite = bool(np.isfinite(sim.positions_unsorted()).all())
     ms_step = elapsed / n_steps * 1e3
-    say(f"[range] warm-up {n_warm} steps {t1 - t0:.1f} s; n={n_steps} "
+    per_eval = len(inst) // 2          # kernels per force evaluation
+    say(f"[{tag}] warm-up {n_warm} steps {t1 - t0:.1f} s; n={n_steps} "
         f"ms/step={ms_step:.4f} T={t_final:.2f} K E_pot={e_pot:.3f} "
         f"kcal/mol finite={finite} overflow={int(sim.state.overflow)}")
-    say(f"[range] colpair launches {sum(counts.values())} (expected 2 x "
-        f"{n_eval} force evaluations): {counts}")
+    say(f"[{tag}] colpair launches {sum(counts.values())} (expected "
+        f"{per_eval} x {n_eval} force evaluations): {counts}")
     for e in entries:
         e["launches"] = counts.get(e["name"], 0)
     if not finite or not 100.0 < t_final < 600.0 or not np.isfinite(e_pot):
         raise SystemExit(f"range-table run: finite={finite} T={t_final}")
-    if sum(counts.values()) != 2 * n_eval or any(
+    if sum(counts.values()) != per_eval * n_eval or any(
             e["launches"] == 0 or "_range_" not in e["name"]
             for e in entries):
-        raise SystemExit(f"range-table launches {counts} != 2 x {n_eval}")
+        raise SystemExit(f"range-table launches {counts} != {per_eval} x "
+                         f"{n_eval}")
     return entries, dict(ms_per_step=ms_step, temperature_K=t_final,
                          n_timed=n_steps, force_evals=n_eval)
 
@@ -830,7 +954,7 @@ def shard_phase(asys, d, n_calls, torch, np):
         entries.append(dict(
             name=name, route="cuda",
             source="molchanica_tpu_torch/csrc/colpair.cu",
-            replaces="molchanica_tpu/ops/pallas/colpair.py:810",
+            replaces=K1_REPLACES,
             launches=sum(x["launches"] for x in rk),
             max_abs_err=max(x["err"] for x in rk), ms=mean("ms"),
             plain_ms=mean("plain_ms"),
@@ -854,6 +978,532 @@ def shard_phase(asys, d, n_calls, torch, np):
             f"{mean('reduce_ms'):.3f} ms")
     return entries, dict(summary, halo=halo, S=plan.n_sorted, ranks=N_SHARD,
                          backend=r0["backend"], wall_s=wall)
+
+
+def rigid_water_error(sim, np) -> float:
+    """max |d(O-H) - r_OH| over the waters of the engine's current state."""
+    top = sim.top
+    if not top.water_count:
+        return 0.0
+    x = sim.positions_unsorted()
+    ws, wc, st = top.water_start, top.water_count, top.water_site_count
+    o = x[ws:ws + wc * st:st]
+    return max(float(np.abs(np.linalg.norm(x[ws + k:ws + wc * st:st] - o,
+                                           axis=1) - top.water_r_oh).max())
+               for k in (1, 2))
+
+
+def sym_vs_tri(sim, entries, torch):
+    """Phase 18: on one fresh master sort of the symmetric engine's state,
+    each symmetric instance on the symmetric table against the monolithic
+    triangular instance on the triangular table (the comparison
+    scripts/check_triangular.py makes): forces within SYM_TOL_F_MAX of
+    max|F| and, per site, SYM_TOL_F of the symmetric plain run's pair
+    magnitudes; total energies rel KERNEL_TOL_E_TOT; and the float64 plain
+    sums of the two tables per site within SYM_TOL_F64 (the same pairs),
+    the symmetric table holding each of the triangular table's pairs twice
+    (to SYM_PAIRS_SLACK).
+    For the force-only instance, two faulted runs of the symmetric kernel
+    (sym_fault_ratios) must fail the per-site gate. Adds the triangular
+    table's pairs and bound to the symmetric entries."""
+    from molchanica_tpu_torch.ops.colpair import (ICL, ColpairDirect,
+                                                  colpair_cuda,
+                                                  colpair_parity,
+                                                  colpair_plain,
+                                                  make_window_fn)
+
+    st = sim.state
+    dev = st.x.device
+    _, keys, _, _, xs, props = sim._sort(st)
+    rows = torch.cat([xs, props], 1)
+    pT = rows.T.contiguous()
+    for we, entry in zip((False, True), entries):
+        res = {}
+        for tri in (False, True):
+            wl, nw, ovf = make_window_fn(sim.plan, per_slice_k=sim._psk,
+                                         triangular=tri)(xs, keys, st.box,
+                                                         props[:, 4])
+            if int(ovf):
+                raise SystemExit(f"sym vs tri: table overflow {int(ovf)}")
+            kern = ColpairDirect(sim.plan, we, triangular=tri)
+            f, e = colpair_cuda(kern.cfg, rows, pT, wl, nw, st.box,
+                                kern.params(dev))
+            stats = {}
+            colpair_plain(rows, pT, wl, nw, st.box, kern.cfg, stats=stats)
+            r64 = rows.double()
+            f64 = colpair_plain(r64, r64.T.contiguous(), wl, nw,
+                                st.box.double(), kern.cfg)[0]
+            res[tri] = (f, e, stats, kern, f64, wl, nw)
+        (fs, es, ss, ks, fs64, wl_s, nw_s), (ft, et, stt, kt, ft64, _, _) = \
+            res[False], res[True]
+        torch.cuda.synchronize()
+        err = float((fs - ft).abs().max()) / float(ft.abs().max())
+        rel_f, _ = colpair_parity(fs, es.sum(1), ft, ss)
+        scale = ss["f_abs"].double().clamp_min(1e-30)
+        site_rel = lambda a, b: float(((a.double() - b).abs().amax(dim=1)
+                                       / scale).max())
+        rel_64 = site_rel(fs64, ft64)
+        rel_s64, rel_t64 = site_rel(fs, fs64), site_rel(ft, ft64)
+        worst = int(((fs - ft).abs().amax(dim=1) / scale).argmax())
+        xw = rows[worst, :3]
+        face = float(torch.minimum(xw, st.box - xw).min())
+        e_s, e_t = float(es.sum()), float(et.sum())
+        rel_e = abs(e_s - e_t) / max(abs(e_t), 1e-30)
+        t_tri = max(stt["pairs"] * pair_ops(kt.cfg) / PEAK_FP32 * 1e3,
+                    entry["bytes"] / PEAK_BYTES * 1e3)
+        entry.update(tri_pairs=stt["pairs"], tri_bound_ms=t_tri)
+        say(f"[sym] {ks.name} vs triangular {kt.name} on one state: "
+            f"max|dF|/max|F|={err:.3e} (limit {SYM_TOL_F_MAX:g}), per site "
+            f"{rel_f:.3e} (limit {SYM_TOL_F:g}); float64 plain sums per "
+            f"site {rel_64:.3e} (limit {SYM_TOL_F64:g}); each kernel against"
+            f" its table's float64 sum per site: symmetric {rel_s64:.3e}, "
+            f"triangular {rel_t64:.3e}; energy {e_s:.4f} vs {e_t:.4f} rel "
+            f"{rel_e:.3e}; ordered pairs {ss['pairs']} vs unordered "
+            f"{stt['pairs']}; bound {entry['bound_ms']:.5f} vs "
+            f"{t_tri:.5f} ms; worst site {worst} (group id "
+            f"{float(rows[worst, 7]):.0f}) {face:.3f} A from a box face")
+        entry.update(tri_site_rel_err=rel_f, tri_f64_site_rel_err=rel_64,
+                     f64_site_rel_err=rel_s64)
+        if not (err < SYM_TOL_F_MAX and rel_f < SYM_TOL_F
+                and rel_64 < SYM_TOL_F64
+                and abs(ss["pairs"] - 2 * stt["pairs"]) <= SYM_PAIRS_SLACK
+                * ss["pairs"]
+                and (not we or rel_e < KERNEL_TOL_E_TOT)):
+            raise SystemExit(f"{ks.name}: symmetric and triangular disagree")
+        if not we:
+            faults = sym_fault_ratios(sim, rows, wl_s, nw_s, ks, ft, ss,
+                                      worst // ICL, torch)
+            say("[sym] faults of the symmetric kernel against the triangular"
+                " one, per site: " + "; ".join(
+                    f"{k} {v:.3e}" for k, v in faults.items())
+                + f" (each must exceed {SYM_TOL_F:g})")
+            entry.update(fault_site_rel_err=faults)
+            if not all(v > SYM_TOL_F for v in faults.values()):
+                raise SystemExit("the symmetric-vs-triangular gate missed a "
+                                 "fault")
+
+
+def sym_fault_ratios(sim, rows, wl, nw, kern, f_ref, stats, c, torch):
+    """The per-site ratio (colpair_parity against f_ref, on `stats`) of the
+    symmetric kernel run with a known fault on its table's inputs: the
+    entries over i-cluster c's own slots emptied, and water O's LJ well
+    depth off by 1e-3."""
+    from molchanica_tpu_torch.ops.colpair import (ICL, colpair_cuda,
+                                                  colpair_parity)
+
+    st = sim.state
+    dev = rows.device
+    wl_f = wl.clone()
+    e = wl_f.view(wl.shape[0], -1, 3)[c]
+    own = ((torch.arange(e.shape[0], device=dev) < nw[c])
+           & (e[:, 0] < (c + 1) * ICL) & (e[:, 1] > c * ICL))
+    e[own, 1] = e[own, 0]
+    g = rows[:, 7]
+    o_w = ((g >= sim._ws + 1) & (g < sim._ws + sim._n_wsites + 1)
+           & (rows[:, 5] > 0))
+    rows_f = rows.clone()
+    rows_f[:, 5] = torch.where(o_w, rows[:, 5] * (1.0 + 1e-3) ** 0.5,
+                               rows[:, 5])
+    out = {}
+    for name, r, w in ((f"cluster {c}'s own-slot entries emptied", rows,
+                        wl_f), ("water O well depth x 1.001", rows_f, wl)):
+        f = colpair_cuda(kern.cfg, r, r.T.contiguous(), w, nw, st.box,
+                         kern.params(dev))[0]
+        out[name] = colpair_parity(f, stats["e_cluster"], f_ref, stats)[0]
+    return out
+
+
+def sym_engine_parity(build_sym, build_split, torch):
+    """Phase 18: the symmetric engine's whole force (force-only and energy
+    functions) and energy terms against the default split engine, both on
+    the card at the same state: per site within ENGINE_TOL_F of max|F| plus
+    SYM_TOL_F of the site's direct-space scale (the symmetric plain run's
+    f_abs, spread like the force; see SYM_TOL_F), terms rel 1e-5. Prints
+    where the difference comes from: each engine's direct-space force
+    against the float64 plain sum of the symmetric table (the same pairs
+    as the split tables), and the rest of the two forces, per site in
+    units of that scale."""
+    from molchanica_tpu_torch.ops.colpair import colpair_plain
+
+    t0 = time.perf_counter()
+    sym, spl = build_sym(), build_split()
+    if not torch.equal(sym.state.perm, spl.state.perm):
+        raise SystemExit("sym engine parity: the two sorts differ")
+    st = sym.state
+    st_s = spl.state.replace(x=st.x)
+    with torch.no_grad():
+        (kern, rows, wl, nw) = engine_instances(sym, torch)[0]
+        stats = {}
+        colpair_plain(rows, rows.T.contiguous(), wl, nw, st.box, kern.cfg,
+                      stats=stats)
+        a = sym._spread_vsite_forces(stats["f_abs"][:, None].repeat(1, 3),
+                                     st.vm_of)[:, 0]
+        a64 = a.double().clamp_min(1e-30)
+        r64 = rows.double()
+        live = st.props[:, 4:5] > 0
+        spread = lambda f: sym._spread_vsite_forces(f, st.vm_of) * live
+        site = lambda f: f.abs().amax(dim=1) / a64
+        for we in (False, True):
+            fs, (_, ts) = sym._make_force_fn(we)(st.x, st)
+            fp, (_, tp) = spl._make_force_fn(we)(st_s.x, st_s)
+            err = (fs - fp).abs().amax(dim=1)
+            f_max = float(fp.abs().max())
+            tol = ENGINE_TOL_F * f_max + SYM_TOL_F * a
+            worst = int(torch.argmax(err / tol))
+            f64 = colpair_plain(r64, r64.T.contiguous(), wl, nw,
+                                st.box.double(), sym._direct[we].cfg)[0]
+            d_s, d_p = (spread(e._direct_force(e._apply_vsites(
+                s.x, s.vm_of, s.box), s, we)[0].double() - f64)
+                for e, s in ((sym, st), (spl, st_s)))
+            rest = (fs - fp).double() - (d_s - d_p)
+            q_s, q_p, q_r = site(d_s), site(d_p), site(rest)
+            say(f"[sym-engine] {'energy' if we else 'force-only'}: per site "
+                f"(units of the direct-space scale) at the worst site "
+                f"{worst}: engines {float(site(fs - fp)[worst]):.3e}, at "
+                f"most the sum of: symmetric direct vs float64 "
+                f"{float(q_s[worst]):.3e}, split direct vs float64 "
+                f"{float(q_p[worst]):.3e}, the rest "
+                f"{float(q_r[worst]):.3e}; over all sites: symmetric "
+                f"{float(q_s.max()):.3e}, split {float(q_p.max()):.3e}, rest "
+                f"{float(q_r.max()):.3e}")
+            terms = ("bond", "angle", "dihedral", "recip") + (
+                ("lj", "coulomb") if we else ())
+            worst_e = max(abs(float(ts[k]) - float(tp[k]))
+                          / max(abs(float(tp[k])), 1e-30) for k in terms)
+            say(f"[sym-engine] {'energy' if we else 'force-only'}: symmetric "
+                f"vs split engine on one state: max|dF|="
+                f"{float(err.max()):.4f} (max|F|={f_max:.2f}); worst site "
+                f"{worst}: |dF|={float(err[worst]):.4f} against limit "
+                f"{float(tol[worst]):.4f}; worst energy term rel "
+                f"{worst_e:.2e}" + (f"; lj {float(ts['lj']):.3f} vs "
+                                    f"{float(tp['lj']):.3f}, coulomb "
+                                    f"{float(ts['coulomb']):.3f} vs "
+                                    f"{float(tp['coulomb']):.3f}"
+                                    if we else ""))
+            if not (bool((err <= tol).all()) and worst_e < 1e-5):
+                raise SystemExit("symmetric vs split engine parity failed")
+    say(f"[sym-engine] two engines and checks "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def sym_path(build_sym, build_split, n_warm, n_steps, torch, np):
+    """Phase 18: FastSim(triangular=False) on config 3. A warm-up step call
+    (a per-slice overflow of the symmetric tables replans there), its two
+    instances against their plain versions on the state's tables, the
+    symmetric against the triangular kernel and the symmetric against the
+    split engine on one state, then the main path: a timed
+    run(0.002, n_steps, n_steps // 2) with its two snapshots, launches
+    counted over exactly that call. Returns (kernel entries, summary)."""
+    from molchanica_tpu_torch.ops.colpair import ColpairDirect
+
+    t0 = time.perf_counter()
+    sim = build_sym(None)
+    torch.cuda.synchronize()
+    st = sim.state
+    say(f"[sym] FastSim(triangular=False) init {time.perf_counter() - t0:.1f}"
+        f" s: S={sim.S} NC={sim.plan.n_clusters} psk={sim._psk} "
+        f"split={sim._split is not None} wl {tuple(st.wl.shape)} max "
+        f"entries {int(st.nw.max())} overflow={int(st.overflow)} "
+        f"(triangular knob {sim._tri})")
+    if sim._split is not None or sim._tri:
+        raise SystemExit("FastSim(triangular=False) did not build the "
+                         "symmetric engine")
+    t0 = time.perf_counter()
+    sim.step(0.002, n_warm)
+    torch.cuda.synchronize()
+    say(f"[sym] warm-up {n_warm} steps in {time.perf_counter() - t0:.1f} s: "
+        f"psk={sim._psk} max entries {int(sim.state.nw.max())} "
+        f"force_evals={sim.force_evals}")
+    entries = kernel_parity(sim, torch)
+    sym_vs_tri(sim, entries, torch)
+    sym_engine_parity(lambda: build_sym(sim._psk), build_split, torch)
+    ColpairDirect.launches.clear()
+    evals0 = sim.force_evals
+    t0 = time.perf_counter()
+    snaps = sim.run(0.002, n_steps, max(n_steps // 2, 1))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = dict(ColpairDirect.launches)
+    n_eval = sim.force_evals - evals0
+    t_final = sim.temperature()
+    finite = bool(np.isfinite(sim.positions_unsorted()).all())
+    ms_step = elapsed / n_steps * 1e3
+    e_snap = [s.energy_data.energy_potential for s in snaps[-2:]]
+    say(f"[sym] run(0.002, {n_steps}, {max(n_steps // 2, 1)}): "
+        f"ms/step={ms_step:.4f} (two snapshot energy evaluations included) "
+        f"T={t_final:.2f} K finite={finite} psk={sim._psk} "
+        f"overflow={int(sim.state.overflow)}; snapshots at "
+        f"{[round(s.time, 6) for s in snaps]} ps, E_pot {e_snap} kcal/mol")
+    say(f"[sym] colpair launches {sum(counts.values())} (expected 1 x "
+        f"{n_eval} force evaluations, replans included): {counts}")
+    for e in entries:
+        e["launches"] = counts.get(e["name"], 0)
+    if not finite or not 100.0 < t_final < 600.0 \
+            or not np.isfinite(e_snap).all() or len(snaps) != 2:
+        raise SystemExit(f"symmetric run: finite={finite} T={t_final} "
+                         f"snapshots={len(snaps)}")
+    if sum(counts.values()) != n_eval or any(e["launches"] == 0
+                                             for e in entries):
+        raise SystemExit(f"symmetric launches {counts} != {n_eval}")
+    return entries, dict(ms_per_step=ms_step, temperature_K=t_final,
+                         n_timed=n_steps, force_evals=n_eval,
+                         psk=sim._psk, elapsed_s=elapsed), sim
+
+
+def sym_alch_path(build_hs, n_steps, torch, np):
+    """Phase 19: FastSim(triangular=False) on the hydration system at
+    couple 0.5: its two has_alch symmetric instances against their plain
+    versions on the master table, then step(0.002, n_steps) and one dhdl,
+    launches counted over exactly those calls. Returns the entries."""
+    from molchanica_tpu_torch.ops.colpair import ColpairDirect
+
+    t0 = time.perf_counter()
+    sim = build_hs()
+    sim.configure_alchemical_window(1.0 - ALCH_COUPLES[0])
+    torch.cuda.synchronize()
+    say(f"[sym-alch] FastSim(triangular=False) on the hydration system "
+        f"init {time.perf_counter() - t0:.1f} s: S={sim.S} psk={sim._psk} "
+        f"max entries {int(sim.state.nw.max())} "
+        f"overflow={int(sim.state.overflow)}")
+    entries = kernel_parity(sim, torch)
+    if any("_alch_sym_" not in e["name"] for e in entries):
+        raise SystemExit("hydration symmetric engine: no has_alch instances")
+    ColpairDirect.launches.clear()
+    evals0 = sim.force_evals
+    sim.step(0.002, n_steps)
+    d = sim.dhdl()
+    torch.cuda.synchronize()
+    counts = dict(ColpairDirect.launches)
+    n_eval = sim.force_evals - evals0
+    t = sim.temperature()
+    say(f"[sym-alch] {n_steps} steps and one dhdl at lambda "
+        f"{1.0 - ALCH_COUPLES[0]:g}: dH/dl={d:.4f} kcal/mol T={t:.2f} K; "
+        f"colpair launches {sum(counts.values())} (expected {n_eval} force "
+        f"evaluations): {counts}")
+    for e in entries:
+        e["launches"] = counts.get(e["name"], 0)
+    if not np.isfinite(d) or not np.isfinite(sim.positions_unsorted()).all():
+        raise SystemExit("symmetric hydration run: non-finite result")
+    if sum(counts.values()) != n_eval or any(e["launches"] == 0
+                                             for e in entries):
+        raise SystemExit(f"symmetric has_alch launches {counts} != {n_eval}")
+    return entries
+
+
+def cross_phase(sim, n_calls, torch, np):
+    """Phase 20: K1g on config 3. The i side is the solute (every non-water
+    site), per-site sorted on the master's column grid; the j side is the
+    master array of `sim`'s current state. Cross windows, the kernel
+    against its plain version, the assembled f_i + f_j and energies against
+    the plain triangular kernel over the master table restricted to pairs
+    with a solute site (all pairs minus the water-water ones), then
+    n_calls driven calls with the launches counted. Returns the entries."""
+    import dataclasses
+
+    from molchanica_tpu_torch.ops.colpair import (ICL, ColpairDirect,
+                                                  colpair_plain,
+                                                  make_sort_fn,
+                                                  make_window_fn)
+
+    st = sim.state
+    dev = st.x.device
+    perm_m, keys_m, _, _, xs, props = sim._sort(st)
+    rows_m = torch.cat([xs, props], 1)
+    pT = rows_m.T.contiguous()
+    S_j = rows_m.shape[0]
+    n_base = sim.n_base
+    xb = torch.zeros((n_base + 1, 3), device=dev)
+    xb[perm_m] = xs
+    sol = torch.nonzero((~sim._in_w_base)
+                        & (sim._props_base[:n_base, 4] > 0))[:, 0]
+    n_sol = int(sol.numel())
+    cap = n_sol + ICL * sim.plan.n_cols
+    plan_sub = dataclasses.replace(sim.plan, n_sorted=-(-cap // 128) * 128,
+                                   n_base=n_sol)
+    perm_s, keys_s, _, ovf = make_sort_fn(plan_sub)(
+        xb[sol], st.box, torch.ones(n_sol, device=dev))
+    if int(ovf):
+        raise SystemExit("cross: subset sort overflow")
+    pad = lambda a: torch.cat([a, torch.zeros_like(a[:1])])
+    xs_s = torch.cat([xb[sol], torch.full((1, 3), 1.0e6, device=dev)])[perm_s]
+    rows_s = torch.cat([xs_s, pad(sim._props_base[sol])[perm_s]], 1)
+    wlo, whi = float(sim._ws + 1), float(sim._ws + sim._n_wsites + 1)
+    psk = sim._psk
+    while True:
+        wl, nw, ovf = make_window_fn(plan_sub, per_slice_k=psk,
+                                     cross_j_size=S_j)(
+            rows_s[:, :3], keys_s, st.box, rows_s[:, 7], keys_m,
+            rows_m[:, 7])
+        if not int(ovf):
+            break
+        psk *= 2
+    say(f"[cross] solute subset {n_sol} sites: S_i={plan_sub.n_sorted} "
+        f"NC={plan_sub.n_clusters} against the master S_j={S_j}; per-slice "
+        f"table K={psk}, max entries {int(nw.max())}; water gid range "
+        f"[{wlo:g}, {whi:g})")
+    # master slot of each real subset slot, for the assembly
+    inv = torch.full((n_base + 1,), S_j, dtype=torch.int64, device=dev)
+    inv[perm_m] = torch.arange(S_j, device=dev)
+    real_s = perm_s < n_sol
+    slot_m = inv[sol[perm_s[real_s]]]
+    wl_t, nw_t, _ = make_window_fn(sim.plan, per_slice_k=sim._psk)(
+        xs, keys_m, st.box, props[:, 4])
+    g = rows_m[:, 7]
+    rows_w = rows_m.clone()
+    solute_m = (g > 0) & ((g < wlo) | (g >= whi))
+    rows_w[:, 3] = torch.where(solute_m, 0.0, rows_w[:, 3])
+    rows_w[:, 5] = torch.where(solute_m, 0.0, rows_w[:, 5])
+    entries = []
+    for we in (False, True):
+        kern = ColpairDirect(plan_sub, we, cross=(wlo, whi, S_j))
+        entry = instance_parity(kern, rows_s, pT, wl, nw, st.box, torch)
+        f_i, f_j, e_lj, e_c = kern(rows_s, pT, wl, nw, st.box, None)
+        f = f_j.clone()
+        f.index_add_(0, slot_m, f_i[real_s])
+        tri = ColpairDirect(sim.plan, we).cfg
+        f_all, lj_all, c_all = colpair_plain(rows_m, pT, wl_t, nw_t, st.box,
+                                             tri)
+        f_ww, lj_ww, c_ww = colpair_plain(rows_w, rows_w.T.contiguous(),
+                                          wl_t, nw_t, st.box, tri)
+        ref = f_all - f_ww
+        e_ref = float(lj_all + c_all - lj_ww - c_ww)
+        torch.cuda.synchronize()
+        err = float((f - ref).abs().max()) / float(ref.abs().max())
+        e_k = float(e_lj + e_c)
+        rel_e = abs(e_k - e_ref) / max(abs(e_ref), 1e-30)
+        say(f"[cross] {kern.name}: f_i + f_j assembled vs the plain "
+            f"triangular kernel over pairs with a solute site: max|dF|/"
+            f"max|F|={err:.3e} (limit {SYM_TOL_F_MAX:g}); energy {e_k:.4f} vs "
+            f"{e_ref:.4f} rel {rel_e:.3e}")
+        if not (err < SYM_TOL_F_MAX and (not we or rel_e < KERNEL_TOL_E_TOT)):
+            raise SystemExit(f"{kern.name}: cross and triangular disagree")
+        ColpairDirect.launches.clear()
+        for _ in range(n_calls):
+            kern(rows_s, pT, wl, nw, st.box, None)
+        torch.cuda.synchronize()
+        entry.update(launches=ColpairDirect.launches.get(kern.name, 0),
+                     assembled_rel_err=err)
+        if entry["launches"] != n_calls:
+            raise SystemExit(f"{kern.name}: {entry['launches']} launches in "
+                             f"{n_calls} calls")
+        entries.append(entry)
+    return entries
+
+
+def probe_bytes(nw, sl, S) -> int:
+    """Bytes the probe's function must move on these inputs: nw, the sl
+    entries it reads, column 0 of the rows of every cluster with an entry,
+    row 0 of pT over each slice the entries name once, and o and o2 written
+    whole."""
+    import numpy as np
+
+    NC, W = sl.shape
+    n = np.clip(nw, 0, W)
+    s = sl[np.arange(W)[None, :] < n[:, None]]
+    s = np.unique(s[(s >= 0) & (s < S // 128)])
+    return 4 * (NC + int(n.sum()) + int((n > 0).sum()) * 64 + s.size * 128
+                + NC * 64 * 8 + 8 * S)
+
+
+def probe_phase(torch, np, dev="cuda"):
+    """Phase 21: P. At the script's shapes and at PROBE_BIG, the kernel
+    against probe_plain and the script's loop (rel < 1e-6), timed; then
+    the main path: the module's main() on the card, launches counted over
+    exactly that call. Returns the JSON entry (script shapes; the large
+    shape's numbers under *_big)."""
+    from molchanica_tpu_torch.ops import probe_prefetch as P
+
+    entry = dict(name="probe_prefetch", route="cuda",
+                 source="molchanica_tpu_torch/csrc/probe_prefetch.cu",
+                 replaces=PROBE_REPLACES, library_ms=None)
+    for sfx, (NC, W, S) in (("", (16, 8, None)), ("_big", PROBE_BIG)):
+        arrs = P.probe_inputs(NC, W, S)
+        nw, sl, rows, pT = (torch.as_tensor(a, device=dev) for a in arrs)
+        o, o2 = P.probe_cuda(nw, sl, rows, pT)
+        op, o2p = P.probe_plain(nw, sl, rows, pT)
+        torch.cuda.synchronize()
+        e_plain = P.rel_errors(o.cpu().numpy(), o2.cpu().numpy(),
+                               op.cpu().numpy(), o2p.cpu().numpy())
+        e_loop = P.rel_errors(o.cpu().numpy(), o2.cpu().numpy(),
+                              *P.probe_loop(*arrs))
+        err = float(max((o - op).abs().max(), (o2 - o2p).abs().max()))
+        ms = cuda_ms(lambda: P.probe_cuda(nw, sl, rows, pT), 50)
+        plain_ms = cuda_ms(lambda: P.probe_plain(nw, sl, rows, pT), 5)
+        pairs = int(np.minimum(np.clip(arrs[0], 0, W), W).sum()) * 64 * 128
+        nbytes = probe_bytes(*arrs[:2], pT.shape[1])
+        t_ops = pairs * PROBE_PAIR_OPS / PEAK_FP32 * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        S = pT.shape[1]
+        say(f"[probe] NC={NC} W={W} S={S}: rel err vs plain o={e_plain[0]:.2e}"
+            f" o2={e_plain[1]:.2e}, vs loop o={e_loop[0]:.2e} "
+            f"o2={e_loop[1]:.2e} (limit 1e-6); kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {max(t_ops, t_bytes):.6f} ms "
+            f"({pairs} pairs, {nbytes} bytes)")
+        if max(*e_plain, *e_loop) >= 1e-6:
+            raise SystemExit(f"probe NC={NC} S={S}: kernel and plain disagree")
+        entry.update({f"max_abs_err{sfx}": err, f"ms{sfx}": ms,
+                      f"plain_ms{sfx}": plain_ms,
+                      f"bound_ms{sfx}": max(t_ops, t_bytes),
+                      f"bound_by{sfx}": ("operations" if t_ops >= t_bytes
+                                         else "bytes"),
+                      f"S{sfx}": S, f"pairs{sfx}": pairs})
+    P.launches = 0
+    rc = P.main([])
+    entry["launches"] = P.launches
+    if rc != 0 or P.launches != 1:
+        raise SystemExit(f"probe main(): exit {rc}, {P.launches} launches")
+    return entry
+
+
+def npt_path(build_npt, n_steps, torch, np):
+    """Phase 22: NPT on config 3, FastSim with the Berendsen barostat,
+    run(0.002, n_steps, n_steps // 2); each period's pressure and box; the
+    box must move, T stay in band, the state stay finite and the waters
+    rigid, and colpair launches equal 2 x the force evaluations (two per
+    barostat period and one per snapshot among them). Returns the
+    summary."""
+    from molchanica_tpu_torch.ops.colpair import ColpairDirect
+
+    t0 = time.perf_counter()
+    sim = build_npt()
+    torch.cuda.synchronize()
+    box0 = float(sim.state.box[0])
+    say(f"[npt] FastSim with BarostatCfg(pressure_target="
+        f"{sim.cfg.barostat_cfg.pressure_target:g}, tau="
+        f"{sim.cfg.barostat_cfg.tau:g}) init {time.perf_counter() - t0:.1f} "
+        f"s: box {box0:.4f} A")
+    ColpairDirect.launches.clear()
+    evals0 = sim.force_evals
+    t0 = time.perf_counter()
+    snaps = sim.run(0.002, n_steps, max(n_steps // 2, 1))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = dict(ColpairDirect.launches)
+    n_eval = sim.force_evals - evals0
+    for step, p, bx in sim.pressure_log:
+        say(f"[npt] step {step}: P={p:.2f} bar, box {bx:.6f} A")
+    box = float(sim.state.box[0])
+    t_final = sim.temperature()
+    finite = bool(np.isfinite(sim.positions_unsorted()).all())
+    rigid = rigid_water_error(sim, np)
+    ms_step = elapsed / n_steps * 1e3
+    say(f"[npt] run(0.002, {n_steps}, {max(n_steps // 2, 1)}): "
+        f"ms/step={ms_step:.4f} (barostat and snapshot evaluations "
+        f"included) T={t_final:.2f} K box {box0:.6f} -> {box:.6f} A "
+        f"(ratio {box / box0:.8f}) finite={finite} max|d(O-H) - r_OH|="
+        f"{rigid:.3e} A; {len(snaps)} snapshots")
+    say(f"[npt] colpair launches {sum(counts.values())} (expected 2 x "
+        f"{n_eval} force evaluations): {counts}")
+    if not finite or not 100.0 < t_final < 600.0 or box == box0 \
+            or rigid >= RIGID_TOL or len(snaps) != 2:
+        raise SystemExit(f"NPT run: finite={finite} T={t_final} box "
+                         f"{box0}->{box} rigid {rigid}")
+    if sum(counts.values()) != 2 * n_eval or not sim.pressure_log:
+        raise SystemExit(f"NPT launches {counts} != 2 x {n_eval}")
+    return dict(ms_per_step=ms_step, temperature_K=t_final, box0=box0,
+                box=box, n_timed=n_steps, force_evals=n_eval,
+                pressures=[p for _, p, _ in sim.pressure_log],
+                rigid_err=rigid, elapsed_s=elapsed)
 
 
 def nvt_hold(sim, n, np):
@@ -933,6 +1583,13 @@ def main():
     ap.add_argument("--shard-calls", type=int, default=N_SHARD_CALLS,
                     help="sharded colpair calls per variant and rank "
                     "(default %(default)s)")
+    ap.add_argument("--sym-steps", type=int, default=N_SYM_STEPS,
+                    help="timed FastSim(triangular=False) run steps "
+                    "(default %(default)s)")
+    ap.add_argument("--sym-warm", type=int, default=N_SYM_WARM,
+                    help="its warm-up steps (default %(default)s)")
+    ap.add_argument("--npt-steps", type=int, default=N_NPT_STEPS,
+                    help="NPT run steps (default %(default)s)")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="after the checks, trace N more FastSim steps "
                     "with torch.profiler")
@@ -960,8 +1617,11 @@ def main():
     from molchanica_tpu_torch import cuda_build
     t0 = time.perf_counter()
     cuda_build.build()
-    say(f"[build] colpair.cu + direct_force.cu built in "
-        f"{time.perf_counter() - t0:.1f} s")
+    say(f"[build] {', '.join(os.path.basename(p) for p in cuda_build.SOURCES)}"
+        f" built in {time.perf_counter() - t0:.1f} s; nvcc wall s per "
+        "process (sources started together, then the link): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in
+                    cuda_build.build_seconds.items()))
     for line in cuda_build.build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             say(f"[build] {line.strip()}")
@@ -1134,7 +1794,47 @@ def main():
     say(f"[dryrun] {time.perf_counter() - t0:.1f} s, ranks on "
         f"{torch.cuda.get_device_name(0)}")
 
-    # ---- 18. results ----
+    # ---- 18. K1e: FastSim on symmetric tables ----
+    def build_sym(psk, per_slice_k=None):
+        return FastSim(asys.topology, cfg, d["x"], box_extent=asys.box_extent,
+                       velocities=d["v"], device="cuda", triangular=False,
+                       per_slice_k=psk if per_slice_k is None else
+                       per_slice_k)
+
+    sym_entries, sym_res, sim_sym = sym_path(
+        build_sym, lambda: build("cuda"), args.sym_warm, args.sym_steps,
+        torch, np)
+    sym_range_entries, sym_range_res = range_path(
+        lambda: build_sym(None, per_slice_k=0), 0, N_SYM_RANGE_STEPS, torch,
+        np, tag="sym-range")
+
+    # ---- 19. K1e has_alch on the hydration system ----
+    sym_alch_entries = sym_alch_path(
+        lambda: FastSim(asys_h.topology, cfg_h, x_rel,
+                        box_extent=asys_h.box_extent, velocities=v_zero,
+                        device="cuda", triangular=False),
+        N_SYM_ALCH_STEPS, torch, np)
+
+    # ---- 20. K1g: the cross variant on config 3 ----
+    cross_entries = cross_phase(sim_sym, N_CROSS_CALLS, torch, np)
+    del sim_sym
+
+    # ---- 21. P: the probe ----
+    probe_entry = probe_phase(torch, np)
+
+    # ---- 22. NPT on config 3 ----
+    from molchanica_tpu_torch.md.config import BarostatCfg
+    cfg_npt = cfg.replace(barostat_cfg=BarostatCfg(pressure_target=1.0,
+                                                   tau=NPT_TAU))
+    npt_res = npt_path(
+        lambda: FastSim(asys.topology, cfg_npt, d["x"],
+                        box_extent=asys.box_extent, velocities=d["v"],
+                        device="cuda"),
+        args.npt_steps, torch, np)
+    entries += (sym_entries + sym_range_entries + sym_alch_entries
+                + cross_entries + [probe_entry])
+
+    # ---- 23. results ----
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     if args.profile:
@@ -1148,8 +1848,9 @@ def main():
                            ns_per_day=ns_day, temperature_K=t_final,
                            elapsed_s=elapsed, n_timed=args.steps,
                            md=md_res, ti=ti, range=range_res,
-                           shard=shard_res, dryrun=dry, kernels=entries), fh,
-                      indent=1)
+                           shard=shard_res, dryrun=dry, sym=sym_res,
+                           sym_range=sym_range_res, npt=npt_res,
+                           kernels=entries), fh, indent=1)
     say(json.dumps({"kernels": [
         {k: e[k] for k in ("name", "route", "source", "replaces",
                            "launches", "max_abs_err", "ms", "plain_ms",

@@ -2,8 +2,8 @@
 // over column-sorted slots, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel molchanica_tpu/ops/pallas/colpair.py::_kernel
-// (pair math _pair_tile), built by make_colpair_direct_fn, in its
-// triangular instances: modes lj / full / coul, force-only (K-polynomial
+// (pair math _pair_tile), built by make_colpair_direct_fn, in every
+// instance. Triangular ones: modes lj / full / coul, force-only (K-polynomial
 // Coulomb) or with energies (erfcx Coulomb), with or without the
 // species-split water filter, and the has_alch instances (ALCH: the
 // softcore branch of _pair_tile for pairs of the coupled molecule with the
@@ -15,8 +15,16 @@
 // entry, so those instances compute what they did before it. The shard
 // variant (K1f, local_shape, :1022-1029 and :1117-1122) reads its i rows
 // from a block of clusters that sits at slot i_base of the j array, and
-// writes the i-forces and the j reactions to two outputs. The plain torch
-// version of the same function is ops/colpair.py::colpair_plain.
+// writes the i-forces and the j reactions to two outputs. The symmetric
+// table (K1e, triangular=False: the self guard :713-716, no triangle bound
+// :907-908, no o2, ehalf = 0.5 :973-977) evaluates every ordered pair from
+// its i side: no j reactions, and each block stores its own 64 rows, so
+// those instances are deterministic. The cross variant (K1g, :814-822,
+// :909-912, :1109-1114) runs the rows of a subset array (the solute)
+// against the master j array: a j in the water group-id range is always
+// kept, any other only when its group id exceeds the i's; i-forces and j
+// reactions go to two outputs. The plain torch version of the same
+// function is ops/colpair.py::colpair_plain.
 //
 // What bounds it on an H100: the FP32 pair math. Per in-cutoff pair it
 // spends ~50-80 FP32 operations (rsqrt, a degree-12 Horner, the LJ clamp)
@@ -32,16 +40,19 @@
 //
 // The TPU grid ran in order, so it summed the j reactions into one
 // accumulator with read-modify-writes. Here blocks run concurrently: the
-// wrapper zeroes the outputs and the kernel adds both the i-forces (once
-// per cluster, at the end) and the j reactions (once per thread and slice)
-// with float atomics. The summation order therefore changes from run to
-// run at float32 roundoff.
+// wrapper zeroes the reaction output and the kernel adds the j reactions
+// (once per thread and slice) with float atomics, and the i-forces (once
+// per cluster, at the end) with atomics too where they share that buffer.
+// The summation order of a reaction therefore changes from run to run at
+// float32 roundoff. Inside a block each warp keeps its own partial
+// i-forces and energies in shared memory, summed in warp order at the end.
 //
 // Layouts (see ops/colpair.py::ColpairDirect):
 //   rows [NC*64, 8] f32: x, y, z, q*sqrt(kC), sigma/2, 2*sqrt(eps), couple
 //        mask, exclusion group id + 1 (0 = padded slot, parked at 1e6 A);
 //        the i rows, slot i_base + r of the j array (i_base = 0 and
-//        rows = the whole state outside the shard variant)
+//        rows = the whole state outside the shard variant; a separate
+//        subset array for the cross variant)
 //   pT   [8, S] f32: the j array transposed (S j slots)
 //   wl   [NC, wl_w] i32: per cluster up to wl_w/3 entries (lo, hi, code)
 //        in j slots; the slices of an entry start at (lo / 128) * 128;
@@ -49,7 +60,8 @@
 //   nw   [NC] i32 entries per cluster
 //   box  [3] f32 box extents
 //   prm  [64] f32: rc2, beta, beta/sqrt(pi), 2*beta/xmax (K-poly), water
-//        group-id range lo/hi, #erfcx coeffs, #K-poly coeffs, the C1 clamp
+//        group-id range lo/hi (the water filter's, or the cross
+//        variant's), #erfcx coeffs, #K-poly coeffs, the C1 clamp
 //        constants (S2_LO, S2_HI, S2_W, 0.5/S2_W, 1/S2_W), R2_MIN, the
 //        softcore SC_ALPHA and SC_SIG2_MIN; [16, 40) erfcx coefficients,
 //        [40, 64) K-poly coefficients
@@ -59,10 +71,13 @@
 // ALCH keeps the plain version's op order where rounding could part the
 // two: soft_c and r2s + soft_c without contraction, 1/(a s6 + 1) as an
 // IEEE division (no --use_fast_math anywhere).
-//   f_i  [NC*64, 3] f32 out: i-forces, zeroed by the caller
+//   f_i  [NC*64, 3] f32 out: i-forces; zeroed by the caller where it is
+//        the buffer of f_j (triangular, outside the shard), else stored
 //   f_j  [S, 3] f32 out: j reactions, zeroed by the caller (the same
-//        buffer as f_i outside the shard variant)
-//   e    [NC, 2] f32 out: per-cluster LJ and Coulomb energies
+//        buffer as f_i for the triangular and symmetric tables outside the
+//        shard; the symmetric table writes no reaction)
+//   e    [NC, 2] f32 out: per-cluster LJ and Coulomb energies (halved for
+//        the symmetric table)
 #include <cuda_runtime.h>
 
 namespace {
@@ -72,9 +87,14 @@ constexpr int LANES = 128;
 constexpr int MODE_LJ = 0;
 constexpr int MODE_FULL = 1;
 constexpr int MODE_COUL = 2;
+constexpr int NWARP = LANES / 32;
 constexpr unsigned FULL_MASK = 0xffffffffu;
+// table kinds (ops/colpair.py _TABLE_*)
+constexpr int TABLE_TRI = 0;
+constexpr int TABLE_SYM = 1;
+constexpr int TABLE_CROSS = 2;
 
-template <int MODE, bool WANT_E, bool WFILT, bool ALCH>
+template <int MODE, bool WANT_E, bool WFILT, bool ALCH, int TABLE>
 __global__ void __launch_bounds__(LANES)
 colpair_kernel(const int* __restrict__ wl, int wl_w,
                const int* __restrict__ nw, const float* __restrict__ rows,
@@ -83,15 +103,17 @@ colpair_kernel(const int* __restrict__ wl, int wl_w,
                const float* __restrict__ cpl, int i_base, float* f_i,
                float* f_j, float* __restrict__ e_out) {
   constexpr bool KPOLY = !WANT_E && MODE != MODE_LJ && !ALCH;
+  constexpr bool REACT = TABLE != TABLE_SYM;
   __shared__ float s_x[ICL], s_y[ICL], s_z[ICL], s_q[ICL], s_sh[ICL],
       s_se[ICL], s_g[ICL], s_cm[ICL];
-  __shared__ float s_f[3][ICL];
+  __shared__ float s_f[NWARP][3][ICL];   // per-warp partial i-forces
   __shared__ float s_c[48];
-  __shared__ float s_e[2];
+  __shared__ float s_e[NWARP][2];
 
   const int c = blockIdx.x;
   const int t = threadIdx.x;
   const int lane = t & 31;
+  const int wp = t >> 5;
   const int cl_base = i_base + c * ICL;   // the cluster's first j slot
 
   if (t < ICL) {
@@ -104,12 +126,10 @@ colpair_kernel(const int* __restrict__ wl, int wl_w,
     s_se[t] = r[5];
     s_cm[t] = r[6];
     s_g[t] = r[7];
-    s_f[0][t] = 0.f;
-    s_f[1][t] = 0.f;
-    s_f[2][t] = 0.f;
   }
+  for (int k = t; k < NWARP * 3 * ICL; k += LANES) (&s_f[0][0][0])[k] = 0.f;
   if (t < 48) s_c[t] = prm[16 + t];
-  if (t < 2) s_e[t] = 0.f;
+  if (t < 2 * NWARP) (&s_e[0][0])[t] = 0.f;
   const float rc2 = prm[0], beta = prm[1], c_ex = prm[2], kscale = prm[3];
   const float wlo = prm[4], whi = prm[5];
   const int n_ex = (int)prm[6], n_kp = (int)prm[7];
@@ -135,7 +155,8 @@ colpair_kernel(const int* __restrict__ wl, int wl_w,
     // cluster's own slots (other ranges were clamped at rebuild; in the
     // shard variant a halo range can sit below the cluster in local slots
     // while it lies above it globally)
-    const bool own = (lo < cl_base + ICL) && (hi > cl_base);
+    const bool own =
+        TABLE == TABLE_TRI && (lo < cl_base + ICL) && (hi > cl_base);
     const int s_end = (hi + LANES - 1) >> 7;
     for (int sl = lo >> 7; sl < s_end; ++sl) {   // once per per-slice entry
       const int gid = (sl << 7) + t;
@@ -152,19 +173,27 @@ colpair_kernel(const int* __restrict__ wl, int wl_w,
         if (ALCH) jcm = pT[6 * S + gid];
         gj = pT[7 * S + gid];
       }
-      const bool is_wj = WFILT && gj >= wlo && gj < whi;
+      // water filter, or (cross) a j in the water group-id range
+      const bool is_wj = (WFILT || TABLE == TABLE_CROSS) && gj >= wlo &&
+                         gj < whi;
       float fjx = 0.f, fjy = 0.f, fjz = 0.f;
       bool any_j = false;
 
       for (int i = 0; i < ICL; ++i) {
         const float gi = s_g[i];
-        bool ok = in_run && (!own || gid > cl_base + i) && gj != gi;
-        if (WFILT) ok = ok && (is_wj || (gi >= wlo && gi < whi));
+        bool ok;
+        if (TABLE == TABLE_CROSS) {
+          ok = in_run && (is_wj || gj > gi);
+        } else {
+          ok = in_run && (!own || gid > cl_base + i) && gj != gi;
+          if (WFILT) ok = ok && (is_wj || (gi >= wlo && gi < whi));
+        }
         const float dx = s_x[i] - jx;
         const float dy = s_y[i] - jy;
         const float dz = s_z[i] - jz;
         const float r2 = dx * dx + dy * dy + dz * dz;
         ok = ok && r2 < rc2;
+        if (TABLE == TABLE_SYM) ok = ok && r2 > 1e-9f;   // self guard
         float c2 = 0.f;
         if (ok) {
           const float r2s = fminf(fmaxf(r2, r2_min), rc2);
@@ -235,11 +264,13 @@ colpair_kernel(const int* __restrict__ wl, int wl_w,
           any_j = true;
         }
         const float px = c2 * dx, py = c2 * dy, pz = c2 * dz;
-        fjx += px;
-        fjy += py;
-        fjz += pz;
+        if (REACT) {
+          fjx += px;
+          fjy += py;
+          fjz += pz;
+        }
         // i-force: -sum over j lanes, one warp reduction per i that has a
-        // pair in this warp
+        // pair in this warp, into the warp's own partial
         if (__any_sync(FULL_MASK, ok)) {
           float sx = px, sy = py, sz = pz;
 #pragma unroll
@@ -249,13 +280,13 @@ colpair_kernel(const int* __restrict__ wl, int wl_w,
             sz += __shfl_xor_sync(FULL_MASK, sz, o);
           }
           if (lane == 0) {
-            atomicAdd(&s_f[0][i], -sx);
-            atomicAdd(&s_f[1][i], -sy);
-            atomicAdd(&s_f[2][i], -sz);
+            s_f[wp][0][i] -= sx;
+            s_f[wp][1][i] -= sy;
+            s_f[wp][2][i] -= sz;
           }
         }
       }
-      if (any_j) {                                  // j reaction
+      if (REACT && any_j) {                         // j reaction
         atomicAdd(&f_j[(size_t)gid * 3 + 0], fjx);
         atomicAdd(&f_j[(size_t)gid * 3 + 1], fjy);
         atomicAdd(&f_j[(size_t)gid * 3 + 2], fjz);
@@ -270,18 +301,36 @@ colpair_kernel(const int* __restrict__ wl, int wl_w,
       ec_acc += __shfl_xor_sync(FULL_MASK, ec_acc, o);
     }
     if (lane == 0) {
-      atomicAdd(&s_e[0], elj_acc);
-      atomicAdd(&s_e[1], ec_acc);
+      s_e[wp][0] = elj_acc;
+      s_e[wp][1] = ec_acc;
     }
   }
   __syncthreads();
+  // a separate i-force buffer (shard, cross) or the symmetric table's rows
+  // belong to this block alone: plain stores
+  const bool store = TABLE != TABLE_TRI || f_i != f_j;
   for (int k = t; k < 3 * ICL; k += LANES) {
     const int comp = k / ICL, i = k - comp * ICL;
-    atomicAdd(&f_i[(size_t)(c * ICL + i) * 3 + comp], s_f[comp][i]);
+    float v = s_f[0][comp][i];
+#pragma unroll
+    for (int w = 1; w < NWARP; ++w) v += s_f[w][comp][i];
+    float* dst = &f_i[(size_t)(c * ICL + i) * 3 + comp];
+    if (store)
+      *dst = v;
+    else
+      atomicAdd(dst, v);
   }
   if (WANT_E && t == 0) {
-    e_out[2 * c] = s_e[0];
-    e_out[2 * c + 1] = s_e[1];
+    float e0 = s_e[0][0], e1 = s_e[0][1];
+#pragma unroll
+    for (int w = 1; w < NWARP; ++w) {
+      e0 += s_e[w][0];
+      e1 += s_e[w][1];
+    }
+    // the symmetric table visits every pair from both of its sites
+    const float ehalf = TABLE == TABLE_SYM ? 0.5f : 1.f;
+    e_out[2 * c] = ehalf * e0;
+    e_out[2 * c + 1] = ehalf * e1;
   }
 }
 
@@ -292,9 +341,9 @@ struct Args {
   cudaStream_t st;
 };
 
-template <int MODE, bool WANT_E, bool WFILT, bool ALCH>
+template <int MODE, bool WANT_E, bool WFILT, bool ALCH, int TABLE>
 void launch(const Args& a) {
-  colpair_kernel<MODE, WANT_E, WFILT, ALCH><<<a.nc, LANES, 0, a.st>>>(
+  colpair_kernel<MODE, WANT_E, WFILT, ALCH, TABLE><<<a.nc, LANES, 0, a.st>>>(
       (const int*)a.wl, a.wl_w, (const int*)a.nw, (const float*)a.rows,
       (const float*)a.pT, a.S, (const float*)a.box, (const float*)a.prm,
       (const float*)a.cpl, a.i_base, (float*)a.f_i, (float*)a.f_j,
@@ -305,36 +354,64 @@ template <int MODE, bool ALCH>
 void launch_flags(int want_energy, int water_filter, const Args& a) {
   if (want_energy) {
     if (water_filter)
-      launch<MODE, true, true, ALCH>(a);
+      launch<MODE, true, true, ALCH, TABLE_TRI>(a);
     else
-      launch<MODE, true, false, ALCH>(a);
+      launch<MODE, true, false, ALCH, TABLE_TRI>(a);
   } else {
     if (water_filter)
-      launch<MODE, false, true, ALCH>(a);
+      launch<MODE, false, true, ALCH, TABLE_TRI>(a);
     else
-      launch<MODE, false, false, ALCH>(a);
+      launch<MODE, false, false, ALCH, TABLE_TRI>(a);
   }
+}
+
+// the symmetric and cross tables: mode full, no water filter
+template <bool ALCH, int TABLE>
+void launch_full(int want_energy, const Args& a) {
+  if (want_energy)
+    launch<MODE_FULL, true, false, ALCH, TABLE>(a);
+  else
+    launch<MODE_FULL, false, false, ALCH, TABLE>(a);
 }
 
 }  // namespace
 
 // Launches on `stream`, allocates nothing, returns cudaGetLastError().
-// alch selects the has_alch instances (modes full and coul only; `cpl`
-// points at the couple scalar and is not read otherwise). S is the j
-// array's slot count, i_base the j slot of the first i row; f_i and f_j
-// may be the same buffer (then S == nc * 64 and i_base == 0).
-extern "C" int colpair_launch(int mode, int want_energy, int water_filter,
-                              int alch, int nc, int wl_w, int S, int i_base,
-                              const void* wl, const void* nw,
-                              const void* rows, const void* pT,
-                              const void* box, const void* prm,
-                              const void* cpl, void* f_i, void* f_j, void* e,
-                              void* stream) {
+// table: 0 triangular, 1 symmetric (mode full, no water filter), 2 cross
+// (mode full, no water filter, no alch, i_base 0; the water group-id range
+// in prm[4..5]). alch selects the has_alch instances (modes full and coul
+// only; `cpl` points at the couple scalar and is not read otherwise). S is
+// the j array's slot count, i_base the j slot of the first i row (the i
+// rows of the cross table are a separate array); f_i and f_j may be the
+// same buffer (then S == nc * 64 and i_base == 0).
+extern "C" int colpair_launch(int table, int mode, int want_energy,
+                              int water_filter, int alch, int nc, int wl_w,
+                              int S, int i_base, const void* wl,
+                              const void* nw, const void* rows,
+                              const void* pT, const void* box,
+                              const void* prm, const void* cpl, void* f_i,
+                              void* f_j, void* e, void* stream) {
   const Args a{nc, wl_w, S, i_base, wl, nw, rows, pT, box, prm, cpl,
                f_i, f_j, e, (cudaStream_t)stream};
   if (nc <= 0) return (int)cudaGetLastError();
-  if (i_base < 0 || i_base + nc * ICL > S) return (int)cudaErrorInvalidValue;
+  if (i_base < 0 || (table != TABLE_CROSS && i_base + nc * ICL > S))
+    return (int)cudaErrorInvalidValue;
   if (alch && cpl == nullptr) return (int)cudaErrorInvalidValue;
+  if (table == TABLE_SYM) {
+    if (mode != MODE_FULL || water_filter) return (int)cudaErrorInvalidValue;
+    if (alch)
+      launch_full<true, TABLE_SYM>(want_energy, a);
+    else
+      launch_full<false, TABLE_SYM>(want_energy, a);
+    return (int)cudaGetLastError();
+  }
+  if (table == TABLE_CROSS) {
+    if (mode != MODE_FULL || water_filter || alch || i_base != 0)
+      return (int)cudaErrorInvalidValue;
+    launch_full<false, TABLE_CROSS>(want_energy, a);
+    return (int)cudaGetLastError();
+  }
+  if (table != TABLE_TRI) return (int)cudaErrorInvalidValue;
   switch (mode) {
     case MODE_LJ:
       if (alch) return (int)cudaErrorInvalidValue;

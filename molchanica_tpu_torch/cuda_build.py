@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels from csrc/*.cu at first use and load them.
 
-Each source exports a plain C entry point. Both sources are compiled with
-one nvcc call for sm_90a into one shared library under _build/, keyed by a
-hash of the sources and the flags, and loaded with ctypes. Nothing here
-includes PyTorch's headers, so a build takes seconds.
+Each source exports a plain C entry point. The sources are compiled for
+sm_90a by one nvcc process each, all started together, and linked into one
+shared library under _build/, keyed by a hash of the sources and the
+flags, and loaded with ctypes. Nothing here includes PyTorch's headers, so
+a build takes seconds.
 """
 from __future__ import annotations
 
@@ -12,18 +13,22 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "csrc", name)
-           for name in ("colpair.cu", "direct_force.cu")]
+           for name in ("colpair.cu", "direct_force.cu", "probe_prefetch.cu")]
 BUILD_DIR = os.path.join(_HERE, "_build")
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # no --use_fast_math: the kernels' pair math must match the plain torch
 # versions (and the exclusion-subtraction paths) to float32 roundoff
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                     "-Xptxas", "-v"]
 
 _lib = None
 build_log = ""       # nvcc's output of the last build (ptxas register report)
+build_seconds = {}   # wall seconds of each nvcc process of the last build
 
 
 def _nvcc() -> str:
@@ -47,19 +52,46 @@ def _target() -> str:
 
 
 def build() -> str:
-    """Compile csrc/*.cu unless their library is current; its path."""
+    """Compile csrc/*.cu unless their library is current; its path. Each
+    source's nvcc time (and the link's) goes to `build_seconds`."""
     global build_log
     out = _target()
-    if not os.path.exists(out):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES],
-                              stdout=subprocess.PIPE,
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{out}.{os.getpid()}"
+    objs = [f"{tag}.{os.path.basename(src)}.o" for src in SOURCES]
+
+    def run(name, args):
+        t0 = time.perf_counter()
+        proc = subprocess.run([nvcc, *args], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
-        build_log = proc.stdout
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for csrc/*.cu:\n{build_log}")
-        os.replace(tmp, out)
+        build_seconds[name] = time.perf_counter() - t0
+        return proc
+
+    try:
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            procs = list(pool.map(
+                lambda so: run(os.path.basename(so[0]),
+                               [*NVCC_FLAGS, "-c", "-o", so[1], so[0]]),
+                zip(SOURCES, objs)))
+        build_log = "".join(p.stdout for p in procs)
+        bad = [os.path.basename(s) for s, p in zip(SOURCES, procs)
+               if p.returncode != 0]
+        if bad:
+            raise RuntimeError(f"nvcc failed for {', '.join(bad)}:\n"
+                               f"{build_log}")
+        link = run("link", [*ARCH, "-shared", "-o", f"{tag}.tmp", *objs])
+        build_log += link.stdout
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc could not link csrc/*.cu:\n"
+                               f"{link.stdout}")
+        os.replace(f"{tag}.tmp", out)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     return out
 
 
@@ -69,9 +101,11 @@ def load_library():
     if _lib is None:
         lib = ctypes.CDLL(build())
         _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.colpair_launch.argtypes = [_I] * 8 + [_P] * 11
+        lib.colpair_launch.argtypes = [_I] * 9 + [_P] * 11
         lib.colpair_launch.restype = ctypes.c_int
         lib.direct_force_launch.argtypes = [_I] * 7 + [_F] + [_P] * 5
         lib.direct_force_launch.restype = ctypes.c_int
+        lib.probe_launch.argtypes = [_I] * 3 + [_P] * 7
+        lib.probe_launch.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -192,6 +192,9 @@ class MdConfig:
     # True; the other backends ("auto" = clusters, "window") are not ported
     use_pallas: bool = False
     direct_backend: str = "auto"
+    # torch.profiler output directory: FastSim.run traces its steps and
+    # writes a Chrome trace there when set
+    trace_dir: Optional[str] = None
     seed: int = 0
 
     def replace(self, **kw):

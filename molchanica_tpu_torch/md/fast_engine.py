@@ -15,15 +15,21 @@ sets it and `dhdl` differentiates the energy in it. `minimize` is the
 capped steepest-descent clash relaxation that init runs when no
 velocities are given. With a rigid multi-site water the direct sum runs as two
 triangular kernels over two overlapping subsets (the species split, see
-__init__). Hot periods apply the reciprocal-space force as an r-RESPA
-impulse every second step. Index arrays that the reference reads at a pad
-slot S (JAX clamps gathers) are clamped to S - 1 here; the masks zero what
-they read.
+__init__); `triangular=False` (or MOLCHANICA_FASTSIM_TRI=0) runs it as one
+symmetric kernel over the master tables instead. Hot periods apply the
+reciprocal-space force as an r-RESPA impulse every second step. With a
+barostat each period ends with a Berendsen scaling of the molecules and
+the box (md/barostat.py); drift past 3% of the planned box replans.
+`run` steps in snapshot intervals and records a Snapshot after each. Index
+arrays that the reference reads at a pad slot S (JAX clamps gathers) are
+clamped to S - 1 here; the masks zero what they read.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import os
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -72,6 +78,16 @@ def _solve3(A, b):
 
 class NonFiniteEnergyError(RuntimeError):
     """Non-finite energy after a step call: an instability."""
+
+
+class _BoxDriftReplan(Exception):
+    """NPT box drift past the plan's tolerance: the dynamics up to the
+    drift check are valid; step() replans at the current box and
+    continues the remainder."""
+
+    def __init__(self, steps_done: int):
+        super().__init__(steps_done)
+        self.steps_done = steps_done
 
 
 class ColpairOverflowError(RuntimeError):
@@ -140,19 +156,27 @@ def _np(t):
 
 class FastSim:
     """Sorted-state MD engine for periodic systems, on `device` (the CUDA
-    card unless the caller asks for the CPU)."""
+    card unless the caller asks for the CPU).
+
+    triangular: the direct-space table. True evaluates every unordered
+    pair once (the species split where it applies, else one triangular
+    kernel); False the symmetric table, one kernel over the master tables
+    that evaluates every ordered pair from its i side. None reads
+    MOLCHANICA_FASTSIM_TRI ("1", the default, is triangular), as the
+    reference does."""
 
     def __init__(self, top: Topology, cfg: MdConfig, x0, box_extent,
                  velocities=None, per_slice_k=None, device="cuda",
-                 generator: torch.Generator = None):
+                 generator: torch.Generator = None, triangular=None):
         dev = resolve_device(device)
         self.device = dev
         if box_extent is None:
             raise ValueError("FastSim requires a periodic box")
         if cfg.dtype != "float32":
             raise ValueError("FastSim is a float32 engine")
-        if cfg.barostat_cfg is not None:
-            raise NotImplementedError("the FastSim barostat is not ported")
+        tri = (os.environ.get("MOLCHANICA_FASTSIM_TRI", "1") == "1"
+               if triangular is None else bool(triangular))
+        self._tri = tri
         if dev.type == "cuda":
             # PME's products are float32 matmuls: keep them in full float32
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -186,6 +210,7 @@ class FastSim:
                              f"cutoff {rc}")
         self.plan = plan_columns(box_np, rc, self.beta, top.n_atoms_real,
                                  n_base, skin=skin, r_blob=r_blob)
+        self._box0 = box_np.copy()       # the plan's box (NPT drift check)
         S = self.plan.n_sorted
         self.S = S
 
@@ -332,10 +357,11 @@ class FastSim:
         psk = PER_SLICE_K if per_slice_k is None else int(per_slice_k)
         self._psk = psk
         rt = psk == 0
-        # the monolithic triangular kernel: the direct sum when the species
-        # split does not apply (no water, or no LJ/charge role split)
+        # the monolithic kernel: the direct sum when the species split does
+        # not apply (no water, no LJ/charge role split, or symmetric tables)
         self._direct = {we: ColpairDirect(self.plan, want_energy=we,
-                                          has_alch=has_alch, range_tables=rt)
+                                          has_alch=has_alch, range_tables=rt,
+                                          triangular=tri)
                         for we in (True, False)}
 
         # ---- species-split direct path ----
@@ -349,7 +375,7 @@ class FastSim:
         #       group-id range.
         # O-H/M pairs never meet: they do not interact.
         self._split = None
-        if self._n_wsites:
+        if tri and self._n_wsites:
             wst = self._wstride
             weps = _np(top.lj_eps)[self._ws:self._ws + wst]
             wq_r = charges[self._ws:self._ws + wst]
@@ -416,7 +442,8 @@ class FastSim:
             sizes = np.ones(n_base, np.int64)
         self._anchor_sort = make_anchor_sort_fn(
             self.plan, anchor_ids, sizes, atom_mask, device=dev)
-        self._windows = (make_window_fn(self.plan, per_slice_k=psk)
+        self._windows = (make_window_fn(self.plan, per_slice_k=psk,
+                                        triangular=tri)
                          if self._split is None else None)
         # base-order helpers for the molecule-frame wrap
         idx_b = np.arange(n_base)
@@ -425,6 +452,10 @@ class FastSim:
                           0)
         self._in_w_base = T(in_w_b, dtype=torch.bool, device=dev)
         self._owner_base = T(idx_b - role_b, **i64)
+        # molecule of each base id, the dummy row its own molecule n_mol
+        # (the barostat's COM scaling)
+        self._n_mol = int(top.n_mol)
+        self._mol_b = T(np.append(_np(top.mol_id), self._n_mol), **i64)
 
         # ---- initial state: identity layout, then one rebuild ----
         self.force_evals = 0        # force evaluations, carried by _replan
@@ -473,6 +504,10 @@ class FastSim:
         self._wall_time = 0.0
         self._sim_time_ps = 0.0
         self._last_terms = {}
+        self._last_pressure = None
+        # (step, pressure bar, box x A) after each barostat period
+        self.pressure_log: list = []
+        self.snapshots: list = []
         # the reference's init relaxation (max_init_relaxation_iters),
         # skipped when the caller supplies velocities (restart / replan)
         if velocities is None and cfg.max_init_relaxation_iters:
@@ -567,27 +602,23 @@ class FastSim:
         return sp, ov1 + ov2, ov3 + ov4
 
     # ------------------------------------------------------------------
-    def _rebuild(self, st: FastState) -> FastState:
-        """Re-sort by column (anchor-based), regather, remap, rebuild the
-        window tables. Works in base order: the state is scattered back to
-        base ids, wrapped by molecule there, anchor-sorted, and every index
-        array is re-derived from the static base arrays."""
-        S = self.S
-        n_base = self.n_base
-        dev = st.x.device
+    def _to_base(self, st: FastState, a, fill):
+        """A sorted [S, 3] array in base order [n_base, 3]."""
+        out = torch.full((self.n_base + 1, 3), fill, dtype=a.dtype,
+                         device=a.device)
+        out[st.perm] = a                   # pads land in the sink n_base
+        return out[:self.n_base]
+
+    def _sort(self, st: FastState):
+        """The master anchor sort of st's positions, as the rebuild makes
+        it: (perm, keys, col_start, overflow, sorted x [S, 3], sorted
+        props [S, 5]). Works in base order: the positions (vsites
+        refreshed) are scattered back to base ids and wrapped by molecule
+        there."""
         # vsites are never moved by the integrator: refresh them from their
         # parents before sorting
-        x = self._apply_vsites(st.x, st.vm_of, st.box)
-
-        def to_base(a, fill):
-            out = torch.full((n_base + 1, 3), fill, dtype=a.dtype,
-                             device=dev)
-            out[st.perm] = a               # pads land in the sink n_base
-            return out[:n_base]
-
-        xb = to_base(x, 1.0e6)
-        vb = to_base(st.v, 0.0)
-        fb = to_base(st.f, 0.0)
+        xb = self._to_base(st, self._apply_vsites(st.x, st.vm_of, st.box),
+                           1.0e6)
         box = st.box
         xw = xb - box * torch.floor(xb / box)             # per-atom wrap
         if self._n_wsites:
@@ -597,11 +628,25 @@ class FastSim:
             rel = minimum_image(xb - xb[self._owner_base], box)
             xw = torch.where(self._in_w_base[:, None],
                              xw[self._owner_base] + rel, xw)
-        perm_new, keys, col_start, ovf1 = self._anchor_sort(xw, box)
+        perm_new, keys, col_start, ovf = self._anchor_sort(xw, box)
+        x_new = torch.cat([xw, torch.full((1, 3), 1.0e6, dtype=xw.dtype,
+                                          device=xw.device)])[perm_new]
+        return (perm_new, keys, col_start, ovf, x_new,
+                self._props_base[perm_new])
+
+    def _rebuild(self, st: FastState) -> FastState:
+        """Re-sort by column (anchor-based), regather, remap, rebuild the
+        window tables. Every index array is re-derived from the static
+        base arrays."""
+        S = self.S
+        n_base = self.n_base
+        dev = st.x.device
+        box = st.box
+        perm_new, keys, col_start, ovf1, x_new, props_new = self._sort(st)
+        vb = self._to_base(st, st.v, 0.0)
+        fb = self._to_base(st, st.f, 0.0)
         pad_row = lambda a, v: torch.cat(
             [a, torch.full((1, 3), v, dtype=a.dtype, device=dev)])
-        x_new = pad_row(xw, 1.0e6)[perm_new]
-        props_new = self._props_base[perm_new]
         # base id -> new slot; dummy and base pads -> S. The dummy entry is
         # overwritten after the scatter that may have written it.
         inv = torch.full((n_base + 1,), S, dtype=torch.int64, device=dev)
@@ -673,6 +718,30 @@ class FastSim:
         return torch.where(m_m, zero, f + add)
 
     # ------------------------------------------------------------------
+    def _direct_force(self, x_v, st: FastState, want_energy):
+        """The direct-space colpair sum at positions x_v (vsites refreshed)
+        on st's tables: (f [S, 3] in master slot order, e_lj, e_c), the
+        species split's L and Q kernels merged, or the monolithic kernel."""
+        box, couple = st.box, st.couple
+        if self._split is None:
+            rows = torch.cat([x_v, st.props], 1)
+            return self._direct[bool(want_energy)](
+                rows, rows.T.contiguous(), st.wl, st.nw, box, couple)
+        skern = self._split["kernels"][bool(want_energy)]
+        sp = st.split
+        x_ext = torch.cat([x_v, torch.full((1, 3), 1.0e6, dtype=x_v.dtype,
+                                           device=x_v.device)])
+        out = []
+        for key in ("l", "q"):
+            rows = torch.cat([x_ext[sp[f"idx_{key}"]], sp[f"props_{key}"]], 1)
+            out.append(skern[key.upper()](rows, rows.T.contiguous(),
+                                          sp[f"wl_{key}"], sp[f"nw_{key}"],
+                                          box, couple))
+        (f_l, elj_l, ec_l), (f_q, elj_q, ec_q) = out
+        comb = torch.cat([f_l, f_q, torch.zeros_like(f_l[:1])])
+        return (comb[sp["gsrc_l"]] + comb[sp["gsrc_q"]], elj_l + elj_q,
+                ec_l + ec_q)
+
     def _make_force_fn(self, want_energy=True, recip_weight=1.0):
         """force(x, st) -> (f, (e, terms)). Index arrays come from `st`.
 
@@ -683,10 +752,6 @@ class FastSim:
         plan = self.plan
         beta = self.beta
         bp = self._bonded
-        split = self._split
-        skern = (split["kernels"][bool(want_energy)]
-                 if split is not None else None)
-        direct = self._direct[bool(want_energy)]
         rw = float(recip_weight)
         scee, scnb, pm = self._p14_scee, self._p14_scnb, self._p14_mask
         sqrt_kc = np.float32(np.sqrt(COULOMB_CONST))
@@ -789,26 +854,7 @@ class FastSim:
             couple = st.couple
             props = st.props
             x_v = self._apply_vsites(x, st.vm_of, box)
-            if split is not None:
-                sp = st.split
-                x_ext = torch.cat([x_v, torch.full(
-                    (1, 3), 1.0e6, dtype=x_v.dtype, device=x_v.device)])
-                rows_l = torch.cat([x_ext[sp["idx_l"]], sp["props_l"]], 1)
-                f_l, elj_l, ec_l = skern["L"](
-                    rows_l, rows_l.T.contiguous(), sp["wl_l"], sp["nw_l"],
-                    box, couple)
-                rows_q = torch.cat([x_ext[sp["idx_q"]], sp["props_q"]], 1)
-                f_q, elj_q, ec_q = skern["Q"](
-                    rows_q, rows_q.T.contiguous(), sp["wl_q"], sp["nw_q"],
-                    box, couple)
-                comb = torch.cat([f_l, f_q, torch.zeros_like(f_l[:1])])
-                f_dir = comb[sp["gsrc_l"]] + comb[sp["gsrc_q"]]
-                e_lj = elj_l + elj_q
-                e_c = ec_l + ec_q
-            else:
-                rows = torch.cat([x_v, props], 1)
-                f_dir, e_lj, e_c = direct(rows, rows.T.contiguous(), st.wl,
-                                          st.nw, box, couple)
+            f_dir, e_lj, e_c = self._direct_force(x_v, st, want_energy)
             cm = props[:, 3]
             q_plain = props[:, 0] / sqrt_kc
             if rw != 0.0:
@@ -1042,20 +1088,22 @@ class FastSim:
 
     # ------------------------------------------------------------------
     def _replan(self, per_slice_k=None):
-        """Rebuild the engine around the current state (optionally with
-        wider window tables). Positions, velocities, step, couple and the
-        random stream carry over."""
+        """Rebuild the engine around the current state: a fresh column plan
+        at the current box (NPT drift), optionally wider window tables.
+        Positions, velocities, step, couple, the random stream, the table
+        kind and the snapshots carry over."""
         x = self.positions_unsorted()
         v = self.velocities_unsorted()
         box = _np(self.state.box).astype(np.float64)
         keep = dict(_sim_time_ps=self._sim_time_ps,
-                    _wall_time=self._wall_time)
+                    _wall_time=self._wall_time, snapshots=self.snapshots,
+                    pressure_log=self.pressure_log)
         evals = self.force_evals
         carry = dict(step=self.state.step, couple=self.state.couple)
         psk = self._psk if per_slice_k is None else per_slice_k
         new = FastSim(self.top, self.cfg, x, box_extent=box, velocities=v,
                       per_slice_k=psk, device=self.device,
-                      generator=self.generator)
+                      generator=self.generator, triangular=self._tri)
         self.__dict__.clear()
         self.__dict__.update(new.__dict__)
         self.__dict__.update(keep)
@@ -1066,7 +1114,9 @@ class FastSim:
              force_cap=None):
         """One MD run request. Recovers from table overflow at period
         granularity: restore the last good state, widen per-slice window
-        tables only if they overflowed, replan, resume. Simulated time is
+        tables only if they overflowed, replan, resume; and from NPT box
+        drift past 3% of the planned box: keep the steps done, replan at
+        the current box, continue the remainder. Simulated time is
         credited only for completed steps; an exhausted retry budget, or a
         window overflow of range tables, raises (the state restored).
         Returns the per-step energies when `record_energy`."""
@@ -1091,6 +1141,9 @@ class FastSim:
                             raise
                         self._replan(per_slice_k=2 * self._psk
                                      if ov.window else None)
+                    except _BoxDriftReplan as bd:
+                        completed += bd.steps_done
+                        self._replan()
             if completed < n_steps:
                 raise ColpairOverflowError(
                     f"step(): replan retry budget exhausted with only "
@@ -1102,7 +1155,10 @@ class FastSim:
     def _step_attempt(self, dt_ps, n_steps, record_energy, force_cap,
                       energies):
         """Period loop of one attempt; the overflow flag is checked after
-        every period, and the raised error carries the last good state."""
+        every period, and the raised error carries the last good state.
+        With a barostat, a period whose tables held is followed by the
+        Berendsen scaling and then the drift check, which raises
+        _BoxDriftReplan past 3% of the planned box."""
         t0 = time.perf_counter()
         k = self.cfg.neighbor_rebuild_every
         done = 0
@@ -1124,11 +1180,101 @@ class FastSim:
                 if record_energy:
                     energies.extend(es)
                 done += todo
+                if self.cfg.barostat_cfg is not None:
+                    self.state, self._last_pressure = self._barostat(
+                        self.state, float(dt_ps) * todo)
+                    box_x = float(self.state.box[0])
+                    self.pressure_log.append((self.state.step,
+                                              float(self._last_pressure),
+                                              box_x))
+                    # the columns and windows were planned for _box0: a few
+                    # percent of isotropic drift stays inside the skin
+                    ratio = box_x / self._box0[0]
+                    if abs(ratio - 1.0) > 0.03:
+                        raise _BoxDriftReplan(done)
         finally:
             self._wall_time += time.perf_counter() - t0
         if n_steps > 0 and not (torch.isfinite(self.state.pe_last)
                                 & torch.isfinite(self.state.ke_last)):
             raise NonFiniteEnergyError("non-finite energy after a step call")
+
+    # ------------------------------------------------------------------
+    def _barostat(self, st: FastState, dt_eff: float):
+        """Period-boundary Berendsen NPT: the molecular (COM-scaling)
+        virial pressure by a central difference of the energy force
+        function (two force evaluations), then each molecule translated by
+        (mu - 1) COM and the box scaled by mu. Returns (state, p_bar)."""
+        from .barostat import _mol_com, berendsen_mu, scaling_pressure_bar_fd
+
+        baro = self.cfg.barostat_cfg
+        force_e = self._make_force_fn(True)
+        n_mol = self._n_mol + 1
+        mol_of = self._mol_b[torch.clamp(st.perm, 0, self.n_base)]
+
+        def e_scalar(x_, b_, _c):
+            return force_e(x_, st.replace(box=b_))[1][0]
+
+        p = scaling_pressure_bar_fd(e_scalar, st.x, st.box, st.v, st.masses,
+                                    st.dof, st.couple, mol_of, n_mol)
+        mu = berendsen_mu(p, baro.pressure_target, baro.tau,
+                          dt_eff).to(st.x.dtype)
+        com, _ = _mol_com(st.x, st.masses, st.dof, mol_of, n_mol)
+        return st.replace(x=st.x + (mu - 1.0) * com[mol_of],
+                          box=st.box * mu), p
+
+    def run(self, dt_ps: float, n_steps: int,
+            snapshot_interval: Optional[int] = None, collect=True):
+        """Step n_steps in calls of snapshot_interval steps (default the
+        config's in-memory snapshot interval, else one call), recording a
+        Snapshot after each call when `collect`. With cfg.trace_dir set,
+        the whole run is traced by torch.profiler and its Chrome trace is
+        written there. Returns the snapshot list."""
+        if snapshot_interval is None:
+            snapshot_interval = self.cfg.snapshot_handlers.memory or n_steps
+        prof = contextlib.nullcontext()
+        if self.cfg.trace_dir:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if self.device.type == "cuda"
+                else [])
+            prof = profile(activities=acts)
+        done = 0
+        with prof:
+            while done < n_steps:
+                todo = min(snapshot_interval, n_steps - done)
+                self.step(dt_ps, todo)
+                done += todo
+                if collect:
+                    self._record_snapshot(dt_ps)
+        if self.cfg.trace_dir:
+            os.makedirs(self.cfg.trace_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(
+                self.cfg.trace_dir, f"fastsim_run_{self.step_count}.json"))
+        return self.snapshots
+
+    def _record_snapshot(self, dt_ps):
+        """Append a Snapshot of the current state: base-order positions and
+        the energy decomposition, one evaluation of the energy force
+        function (hot periods run the force-only kernels)."""
+        from .snapshot import EnergyData, Snapshot
+
+        x = self.positions_unsorted()
+        with torch.no_grad():
+            _, (_, terms) = self._make_force_fn(True)(self.state.x,
+                                                      self.state)
+        self._last_terms = terms
+        self.snapshots.append(Snapshot(
+            time=float(self.step_count) * dt_ps, atom_posits=x,
+            energy_data=EnergyData(
+                energy_potential=float(terms["energy_potential"]),
+                energy_potential_nonbonded=float(
+                    terms["energy_potential_nonbonded"]),
+                energy_potential_bonded=float(
+                    terms["energy_potential_bonded"]))))
+
+    def computation_time(self) -> float:
+        """Wall seconds spent inside step calls."""
+        return self._wall_time
 
     # ------------------------------------------------------------------
     def metrics(self) -> dict:

@@ -12,14 +12,17 @@ code): a [lo, hi) slot range plus the periodic x/y/z shift baked into
 the kernel needs no per-pair minimum image. Per-slice tables hold up to
 `per_slice_k` entries, each inside one 128-slot slice; range tables
 (`per_slice_k=0`) hold up to `plan.w_max` whole ranges, and the kernel
-walks the slices of each. Tables are triangular: every unordered pair is
-evaluated once, the reaction force goes to j (Newton's third law).
+walks the slices of each. Triangular tables evaluate every unordered pair
+once and send the reaction force to j (Newton's third law); symmetric
+tables evaluate every ordered pair from its i side and halve the
+energies; cross tables pair a subset array with a master array.
 
 `ColpairDirect` is the kernel: the hand-written CUDA kernel in
 csrc/colpair.cu for CUDA tensors, and `colpair_plain` (the same function
 in plain torch) for CPU tensors. Its shard variant (`local_shape`) runs
 one block of clusters of a sorted state split over several processes
-(parallel/spatial_colpair.py). `pairlist_colpair_energy` evaluates the
+(parallel/spatial_colpair.py); its cross variant (`cross`) runs a solute
+subset against the master array. `pairlist_colpair_energy` evaluates the
 same pair math over an explicit pair list, so excluded pairs that the
 kernel adds are subtracted to float32 roundoff.
 """
@@ -326,16 +329,26 @@ def make_anchor_sort_fn(plan: ColPlan, anchor_ids, sizes, atom_mask_base,
     return sort
 
 
-def make_window_fn(plan: ColPlan, per_slice_k: int = PER_SLICE_K):
-    """Triangular window tables.
+def make_window_fn(plan: ColPlan, per_slice_k: int = PER_SLICE_K,
+                   triangular: bool = True, cross_j_size: int = None):
+    """Window tables.
 
     windows(xs, keys, box, mask_s) -> (wl [NC, 3K] int32,
     nw [NC] int32, overflow): every (column offset, z-range) entry becomes
-    its [lo, hi) slot range (lo clamped to the cluster start, so each
-    unordered pair lies in exactly one tile). Wrap ranges read the
-    opposite end of the column with the z image baked into the code;
-    overlapping ranges carry different images and at most one image of a
-    pair is inside the cutoff.
+    its [lo, hi) slot range. Triangular tables clamp lo to the cluster
+    start, so each unordered pair lies in exactly one tile; symmetric
+    tables (`triangular=False`) keep the whole range, and every ordered
+    pair lies in its i-cluster's tile. Wrap ranges read the opposite end
+    of the column with the z image baked into the code; overlapping ranges
+    carry different images and at most one image of a pair is inside the
+    cutoff.
+
+    cross_j_size=S_j: the cross tables. Cluster bounding boxes come from
+    this plan's (subset) array, the slot ranges from a separate master j
+    array of S_j slots sorted on the same column grid, whose keys and mask
+    arrive as two more arguments: windows(xs, keys, box, mask_s, keys_j,
+    mask_j). Never clamped (the cross kernel's group-id order keeps each
+    pair once).
 
     per_slice_k > 0: every range is cut into 128-slot slice entries, K =
     per_slice_k, and the overflow is the excess slice count. per_slice_k
@@ -351,8 +364,9 @@ def make_window_fn(plan: ColPlan, per_slice_k: int = PER_SLICE_K):
     HB = 8                      # window-range z quantization (256 bins)
     SH = ZBITS - HB
     NB = 1 << HB
+    clamp = triangular and cross_j_size is None
 
-    def windows(xs, keys, box, mask_s):
+    def windows(xs, keys, box, mask_s, keys_j=None, mask_j=None):
         dev = xs.device
         lz = box[2]
         wx = box[0] / nx
@@ -360,12 +374,17 @@ def make_window_fn(plan: ColPlan, per_slice_k: int = PER_SLICE_K):
         xc = xs.reshape(NC, ICL, 3)
         mc = mask_s.reshape(NC, ICL) > 0
         any_valid = mc.any(dim=1)
-        # per-(column, z-bin) cumulative slot table; pads sit in the
-        # per-column sentinel bin NB
-        colk = torch.clamp(keys >> ZBITS, 0, n_cols - 1)
-        bin8 = (keys & zmax) >> SH
+        if cross_j_size is None:
+            keys_j, mask_j = keys, mask_s
+        elif keys_j is None or keys_j.shape != (cross_j_size,):
+            raise ValueError(f"cross windows need the master keys and mask "
+                             f"of {cross_j_size} slots")
+        # per-(column, z-bin) cumulative slot table of the j array; pads
+        # sit in the per-column sentinel bin NB
+        colk = torch.clamp(keys_j >> ZBITS, 0, n_cols - 1)
+        bin8 = (keys_j & zmax) >> SH
         bucket = colk * (NB + 1) + torch.where(
-            mask_s > 0, bin8, torch.full_like(bin8, NB))
+            mask_j > 0, bin8, torch.full_like(bin8, NB))
         cum_flat = torch.searchsorted(
             bucket.contiguous(), _arange(n_cols * (NB + 1) + 1, dev))
         big = torch.tensor(1e30, dtype=xs.dtype, device=dev)
@@ -437,7 +456,8 @@ def make_window_fn(plan: ColPlan, per_slice_k: int = PER_SLICE_K):
         base = torch.stack(jcol_l, 1) * (NB + 1)
         lo = cum_flat[base + blo_all]
         hi = cum_flat[base + bhi_all + 1]
-        lo = torch.maximum(lo, cl_start[:, None])      # triangular
+        if clamp:
+            lo = torch.maximum(lo, cl_start[:, None])
         good = torch.stack(ok_l, 1) & (hi > lo)
         zero = torch.zeros_like(lo)
         lo_all = torch.where(good, lo, zero)
@@ -486,9 +506,12 @@ def make_window_fn(plan: ColPlan, per_slice_k: int = PER_SLICE_K):
 
 def _pair_tile(xi, yi, zi, qi, shi, sei, jx, jy, jz, jq, jsh, jse, valid,
                rc2, beta, coeffs, want_energy, mode, kpoly, mags=False,
-               alch=None):
+               alch=None, self_guard=False):
     """Broadcast pair math of the kernel (same op order as csrc/colpair.cu).
-    Returns (coeff = dV/dr2 masked, e_lj, e_c, dx, dy, dz, mag). With
+    Returns (coeff = dV/dr2 masked, e_lj, e_c, dx, dy, dz, mag).
+    `self_guard` drops pairs at r^2 <= 1e-9 (the symmetric table's guard
+    against a clamped self pair; triangular and cross tables exclude the
+    diagonal by their masks). With
     `mags`, mag = (|coeff| scale, |energy| scale): each the sum of the
     magnitudes of the terms that float32 roundoff acts on, the LJ force
     taken before the C1 blend factor gp (gp -> 0 at the clamp, so its
@@ -507,6 +530,8 @@ def _pair_tile(xi, yi, zi, qi, shi, sei, jx, jy, jz, jq, jsh, jse, valid,
     dz = zi - jz
     r2 = dx * dx + dy * dy + dz * dz
     valid = valid & (r2 < rc2)
+    if self_guard:
+        valid = valid & (r2 > 1e-9)
     r2s = torch.clamp(r2, R2_MIN, rc2)
     inv_r = torch.rsqrt(r2s)
     inv_r2 = inv_r * inv_r
@@ -607,13 +632,21 @@ def colpair_plain(rows, pT, wl, nw, box, cfg, couple=None, stats=None,
     the tables are in j-array slots, and the result is (f_i [NCl*ICL, 3],
     f_j [s_j, 3], e_lj, e_c), the reduction left to the caller.
 
+    `cfg.triangular` False selects the symmetric table: every ordered pair
+    in its i-cluster's tile, the r^2 > 1e-9 self guard, no j reactions,
+    and each cluster's energies halved. `cfg.cross` = (wlo, whi) selects
+    the cross variant: the i rows are a separate subset array, pT the
+    [8, s_j] master array, a j is kept when its group id lies in [wlo,
+    whi) or exceeds the i's, and the result is (f_i, f_j [s_j, 3], e_lj,
+    e_c) as for the shard.
+
     Vectorised over [clusters, slices, 64, 128], chunked over clusters so a
     chunk's tiles stay under CHUNK_ELEMS elements; reactions go back by
     index_add_. A `stats` dict, if given, receives the magnitudes that
     `colpair_parity` scales errors by: "pairs", the count of evaluated
-    (in-cutoff, unmasked) pairs; "f_abs" [S] (shard: [NCl*ICL + s_j], i
-    rows then j slots), each site's sum over its pairs of the pair force's
-    term magnitudes (`_pair_tile`'s mag); "e_cluster" [NC], each
+    (in-cutoff, unmasked) pairs; "f_abs" [S] (shard and cross: [NCl*ICL +
+    s_j], i rows then j slots), each site's sum over its pairs of the pair
+    force's term magnitudes (`_pair_tile`'s mag); "e_cluster" [NC], each
     i-cluster's energy (LJ + Coulomb); "e_abs" [NC], its sum of pair
     energy term magnitudes.
     """
@@ -622,22 +655,26 @@ def colpair_plain(rows, pT, wl, nw, box, cfg, couple=None, stats=None,
     K = wl.shape[1] // 3
     wl3 = wl.reshape(NC, K, 3).long()
     nw = nw.long()
+    cross = cfg.cross is not None
+    sym = not cfg.triangular and not cross
+    two_out = i_base is not None or cross
     if cfg.has_alch:
         if couple is None:
             raise ValueError("has_alch colpair needs the couple value")
         omc = 1.0 - torch.as_tensor(couple, dtype=rows.dtype, device=dev)
     zeros3 = lambda n: torch.zeros((n, 3), dtype=rows.dtype, device=dev)
-    if i_base is None:
-        f_i = f_j = zeros3(rows.shape[0])
-        base = 0
-    else:
+    if two_out:
         f_i, f_j = zeros3(rows.shape[0]), zeros3(pT.shape[1])
-        base = int(i_base)
+    else:
+        f_i = f_j = zeros3(rows.shape[0])
+    base = 0 if i_base is None else int(i_base)
+    # each pair of the symmetric table is visited from both of its sites
+    ehalf = 0.5 if sym else 1.0
     e_lj = torch.zeros((), dtype=rows.dtype, device=dev)
     e_c = torch.zeros((), dtype=rows.dtype, device=dev)
     if stats is not None:
         fa_i = fa_j = torch.zeros_like(f_j[:, 0])
-        if i_base is not None:
+        if two_out:
             fa_i = torch.zeros_like(f_i[:, 0])
         stats.update(pairs=0, e_cluster=torch.zeros_like(f_i[:NC, 0]),
                      e_abs=torch.zeros_like(f_i[:NC, 0]))
@@ -682,18 +719,26 @@ def colpair_plain(rows, pT, wl, nw, box, cfg, couple=None, stats=None,
         irow = rows[c0 * ICL:c1 * ICL].reshape(c1 - c0, 1, ICL, 8)
         ii = lambda k: irow[..., k:k + 1]                         # [c,1,I,1]
         jj = lambda v: v[:, :, None, :]                           # [c,k,1,L]
-        # triangle bound only on the range overlapping the own slots
-        cl_base = base + (_arange(c1 - c0, dev) + c0)[:, None] * ICL
-        islot = cl_base[:, :, None] + _arange(ICL, dev)           # [c,1,I]
-        own = (lo < cl_base + ICL) & (hi > cl_base)               # [c, k]
-        lo_eff = torch.where(own[..., None],
-                             torch.maximum(islot + 1, lo[..., None]),
-                             lo[..., None])                       # [c,k,I]
         g = gid[:, :, None, :]
+        if cfg.triangular and not cross:
+            # triangle bound only on the range overlapping the own slots
+            cl_base = base + (_arange(c1 - c0, dev) + c0)[:, None] * ICL
+            islot = cl_base[:, :, None] + _arange(ICL, dev)       # [c,1,I]
+            own = (lo < cl_base + ICL) & (hi > cl_base)           # [c, k]
+            lo_eff = torch.where(own[..., None],
+                                 torch.maximum(islot + 1, lo[..., None]),
+                                 lo[..., None])[..., None]        # [c,k,I,1]
+        else:
+            lo_eff = lo[..., None, None]
         gi = ii(7)
         gj = jj(pj[7])
-        jok = ((g >= lo_eff[..., None]) & (g < hi[..., None, None])
-               & (gj != gi) & active[..., None, None])
+        jok = ((g >= lo_eff) & (g < hi[..., None, None])
+               & active[..., None, None])
+        if cross:
+            wlo, whi = cfg.cross
+            jok = jok & (((gj >= wlo) & (gj < whi)) | (gj > gi))
+        else:
+            jok = jok & (gj != gi)
         if cfg.water_filter is not None:
             wlo, whi = cfg.water_filter
             jok = jok & (((gi >= wlo) & (gi < whi))
@@ -708,31 +753,37 @@ def colpair_plain(rows, pT, wl, nw, box, cfg, couple=None, stats=None,
             jj(pj[0] + shx), jj(pj[1] + shy), jj(pj[2] + shz),
             jj(pj[3]), jj(pj[4]), jj(pj[5]), jok,
             cfg.rc2, cfg.beta, cfg.coeffs, cfg.want_energy, cfg.mode,
-            cfg.kpoly, mags=stats is not None, alch=alch)
+            cfg.kpoly, mags=stats is not None, alch=alch, self_guard=sym)
         c2 = 2.0 * coeff
         d = torch.stack([c2 * dx, c2 * dy, c2 * dz], -1)          # [c,k,I,L,3]
         f_i[c0 * ICL:c1 * ICL] -= d.sum(dim=(1, 3)).reshape(-1, 3)
-        f_j.index_add_(0, gid.reshape(-1), d.sum(dim=2).reshape(-1, 3))
+        if not sym:
+            f_j.index_add_(0, gid.reshape(-1), d.sum(dim=2).reshape(-1, 3))
         if cfg.want_energy:
             if elj is not None:
-                e_lj = e_lj + elj.sum()
+                e_lj = e_lj + ehalf * elj.sum()
             if ec is not None:
-                e_c = e_c + ec.sum()
+                e_c = e_c + ehalf * ec.sum()
         if stats is not None:
             r2 = dx * dx + dy * dy + dz * dz
-            stats["pairs"] += int(torch.count_nonzero(jok & (r2 < cfg.rc2)))
+            ok = jok & (r2 < cfg.rc2)
+            if sym:
+                ok = ok & (r2 > 1e-9)
+            stats["pairs"] += int(torch.count_nonzero(ok))
             dn = 2.0 * mag[0] * torch.sqrt(r2)                   # [c,k,I,L]
             fa_i[c0 * ICL:c1 * ICL] += dn.sum(dim=(1, 3)).reshape(-1)
-            fa_j.index_add_(0, gid.reshape(-1), dn.sum(dim=2).reshape(-1))
+            if not sym:
+                fa_j.index_add_(0, gid.reshape(-1),
+                                dn.sum(dim=2).reshape(-1))
             if cfg.want_energy:
-                stats["e_cluster"][c0:c1] += sum(
+                stats["e_cluster"][c0:c1] += ehalf * sum(
                     e.sum(dim=(1, 2, 3)) for e in (elj, ec) if e is not None)
-                stats["e_abs"][c0:c1] += mag[1].sum(dim=(1, 2, 3))
+                stats["e_abs"][c0:c1] += ehalf * mag[1].sum(dim=(1, 2, 3))
     if stats is not None:
-        stats["f_abs"] = fa_j if i_base is None else torch.cat([fa_i, fa_j])
-    if i_base is None:
-        return f_i, e_lj, e_c
-    return f_i, f_j, e_lj, e_c
+        stats["f_abs"] = torch.cat([fa_i, fa_j]) if two_out else fa_j
+    if two_out:
+        return f_i, f_j, e_lj, e_c
+    return f_i, e_lj, e_c
 
 
 def colpair_parity(f, e_cluster, f_ref, stats):
@@ -756,6 +807,8 @@ def colpair_parity(f, e_cluster, f_ref, stats):
 # ---------------------------------------------------------------------------
 
 _MODES = {"lj": 0, "full": 1, "coul": 2}
+# table kinds of csrc/colpair.cu
+_TABLE_TRI, _TABLE_SYM, _TABLE_CROSS = 0, 1, 2
 
 
 @dataclass(frozen=True)
@@ -769,6 +822,8 @@ class KernelCfg:
     coeffs: Tuple[float, ...] = ()
     kpoly: Tuple[Tuple[float, ...], float] = None
     has_alch: bool = False
+    triangular: bool = True
+    cross: Tuple[float, float] = None
 
 
 class ColpairDirect:
@@ -777,9 +832,14 @@ class ColpairDirect:
     rows: [S, 8] f32 sorted rows (x, y, z, q sqrt(kC), sigma/2, 2 sqrt(eps),
           couple_mask, exclusion group id + 1; 0 marks a padded slot)
     pT:   [8, S] f32, the same transposed (the j side)
-    wl:   [NC, 3K] int32 triangular window entries (lo, hi, code):
-          per-slice, or with `range_tables` the [NC, 3 w_max] range table
+    wl:   [NC, 3K] int32 window entries (lo, hi, code): per-slice, or with
+          `range_tables` the [NC, 3 w_max] range table; triangular, or
+          with `triangular=False` symmetric (make_window_fn's flag)
     nw:   [NC] int32 entries per cluster
+
+    triangular=False: the symmetric instance (every ordered pair from its
+    i side, no reactions, energies halved). Only mode 'full' without the
+    water filter or the shard is built, as FastSim runs it.
 
     local_shape=(nc_local, s_local, i_base): the shard variant. rows is
     the [nc_local*ICL, 8] block of this shard's clusters, sitting at slot
@@ -787,29 +847,50 @@ class ColpairDirect:
     blocks); the table is in local slots. Returns (f_i [nc_local*ICL, 3],
     f_j [s_local, 3], e_lj, e_c): the caller reduces the halo reactions.
 
+    cross=(wlo, whi, s_j): the cross variant. rows is a [NC*ICL, 8] subset
+    array (the solute, sorted on the master's column grid), pT the [8, s_j]
+    master array, the table make_window_fn(cross_j_size=s_j)'s. A j whose
+    group id lies in [wlo, whi) (water) is always kept, any other only when
+    its group id exceeds the i's, so each pair with a subset site counts
+    once. Returns (f_i [NC*ICL, 3], f_j [s_j, 3], e_lj, e_c). Mode 'full'
+    only, without has_alch.
+
     CUDA tensors launch the hand-written kernel (csrc/colpair.cu); CPU
     tensors take `colpair_plain`. `launches[name]` counts the kernel's
     launches per variant name (e.g. "colpair_coul_wf_force",
     "colpair_full_alch_force", "colpair_coul_wf_range_force",
-    "colpair_full_range_shard_energy"), across all instances. K-poly
-    Coulomb is on iff force-only and mode != 'lj' and not has_alch.
-    has_alch instances (softcore pairs of the coupled molecule, rows col 6
-    = couple mask) read `couple` as a 0-d tensor on the rows' device and
-    take mode 'full' or 'coul' (an alchemical solute sits in the L subset,
-    which is then 'full').
+    "colpair_full_range_shard_energy", "colpair_full_sym_force",
+    "colpair_full_cross_energy"), across all instances. K-poly Coulomb is
+    on iff force-only and mode != 'lj' and not has_alch. has_alch
+    instances (softcore pairs of the coupled molecule, rows col 6 = couple
+    mask) read `couple` as a 0-d tensor on the rows' device and take mode
+    'full' or 'coul' (an alchemical solute sits in the L subset, which is
+    then 'full').
     """
     launches: dict = {}
 
     def __init__(self, plan: ColPlan, want_energy: bool, mode: str = "full",
                  water_filter=None, has_alch: bool = False,
-                 range_tables: bool = False, local_shape=None):
+                 range_tables: bool = False, local_shape=None,
+                 triangular: bool = True, cross=None):
         if mode not in _MODES:
             raise ValueError(f"unknown colpair mode {mode!r}")
         if has_alch and mode == "lj":
             raise ValueError("has_alch colpair takes mode 'full' or 'coul'")
+        if (not triangular or cross is not None) and (
+                mode != "full" or water_filter is not None
+                or local_shape is not None):
+            raise ValueError(
+                "symmetric and cross colpair are built in mode 'full' only, "
+                "without the water filter or the shard: other instances are "
+                "not ported (ROADMAP.md Queue 2)")
+        if cross is not None and has_alch:
+            raise ValueError("cross colpair has no has_alch instance "
+                             "(ROADMAP.md Queue 2)")
         self.w_ent = plan.w_max if range_tables else None
         self.local_shape = (None if local_shape is None
                             else tuple(int(v) for v in local_shape))
+        self.cross_j = None if cross is None else int(cross[2])
         kpoly = None
         if not want_energy and mode != "lj" and not has_alch:
             kpoly = (tuple(float(v) for v in plan.kpoly_coeffs),
@@ -820,10 +901,15 @@ class ColpairDirect:
                           tuple(float(v) for v in water_filter)),
             rc2=float(plan.cutoff) ** 2, beta=float(plan.beta),
             coeffs=tuple(float(v) for v in plan.erfcx_coeffs), kpoly=kpoly,
-            has_alch=bool(has_alch))
+            has_alch=bool(has_alch),
+            triangular=bool(triangular) and cross is None,
+            cross=(None if cross is None else
+                   (float(cross[0]), float(cross[1]))))
         self.name = "_".join(
             ["colpair", mode] + (["wf"] if water_filter is not None else [])
             + (["alch"] if has_alch else [])
+            + (["cross"] if cross is not None else
+               [] if triangular else ["sym"])
             + (["range"] if range_tables else [])
             + (["shard"] if local_shape is not None else [])
             + ["energy" if want_energy else "force"])
@@ -846,6 +932,8 @@ class ColpairDirect:
                 p[3] = 2.0 * c.beta / c.kpoly[1]
             if c.water_filter is not None:
                 p[4], p[5] = c.water_filter
+            if c.cross is not None:
+                p[4], p[5] = c.cross
             p[6] = len(c.coeffs)
             p[7] = len(kp)
             p[8:16] = (_S2_LO, _S2_HI, _S2_W, 0.5 / _S2_W, 1.0 / _S2_W,
@@ -859,6 +947,8 @@ class ColpairDirect:
         ls = self.local_shape
         n_i = rows.shape[0] if ls is None else ls[0] * ICL
         s_j = n_i if ls is None else ls[1]
+        if self.cross_j is not None:
+            s_j = self.cross_j
         if rows.shape != (n_i, 8) or pT.shape != (8, s_j) or s_j % LANES \
                 or n_i % ICL:
             raise ValueError(f"colpair rows {tuple(rows.shape)} / pT "
@@ -885,8 +975,11 @@ def colpair_cuda(cfg: KernelCfg, rows, pT, wl, nw, box, params,
     """Launch csrc/colpair.cu on the current stream: (f [S, 3], per-cluster
     energies [NC, 2] = (e_lj, e_c)); with `i_base` the shard variant,
     (f_i [NC*ICL, 3], f_j [s_j, 3], e [NC, 2]) for i rows sitting at slot
-    i_base of the j array pT [8, s_j]. The outputs are made here, zeroed
-    (the kernel adds i-forces and j reactions with atomics). has_alch
+    i_base of the j array pT [8, s_j]; with `cfg.cross` the same triple
+    for a subset i array against the master pT. The outputs are made
+    here: the j reactions (and the i-forces where they share its buffer)
+    zeroed, for the kernel adds them with atomics; a separate i-force
+    buffer, which the kernel stores row by row, left unset. has_alch
     instances read `couple` through its device pointer (a 0-d float32
     tensor, changed per window and shifted inside dhdl without a host
     sync). Counts no launch; `ColpairDirect` does."""
@@ -907,8 +1000,11 @@ def colpair_cuda(cfg: KernelCfg, rows, pT, wl, nw, box, params,
                              f"tensor on {dev}")
     if box.numel() != 3:
         raise ValueError("colpair: box must hold 3 extents")
-    if (0 if i_base is None else i_base) + NC * ICL > s_j or (
-            i_base is None and s_j != rows.shape[0]):
+    cross = cfg.cross is not None
+    if cross and i_base is not None:
+        raise ValueError("colpair: cross has no shard variant")
+    if not cross and ((0 if i_base is None else i_base) + NC * ICL > s_j or (
+            i_base is None and s_j != rows.shape[0])):
         raise ValueError("colpair: the i rows do not sit in the j array")
     c_ptr = ctypes.c_void_p(None)
     if cfg.has_alch:
@@ -920,14 +1016,21 @@ def colpair_cuda(cfg: KernelCfg, rows, pT, wl, nw, box, params,
         couple = couple.contiguous()
         c_ptr = ctypes.c_void_p(couple.data_ptr())
     lib = load_library()
-    f_i = torch.zeros((NC * ICL, 3), dtype=torch.float32, device=dev)
-    f_j = f_i if i_base is None else torch.zeros((s_j, 3),
-                                                 dtype=torch.float32,
-                                                 device=dev)
-    e = torch.zeros((NC, 2), dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    two_out = i_base is not None or cross
+    if two_out:
+        f_i = torch.empty((NC * ICL, 3), **f32)
+        f_j = torch.zeros((s_j, 3), **f32)
+    elif cfg.triangular:
+        f_i = f_j = torch.zeros((NC * ICL, 3), **f32)
+    else:                       # symmetric: no reactions, rows stored
+        f_i = f_j = torch.empty((NC * ICL, 3), **f32)
+    e = torch.zeros((NC, 2), **f32)
+    table = _TABLE_CROSS if cross else (
+        _TABLE_TRI if cfg.triangular else _TABLE_SYM)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     err = lib.colpair_launch(
-        _MODES[cfg.mode], int(cfg.want_energy),
+        table, _MODES[cfg.mode], int(cfg.want_energy),
         int(cfg.water_filter is not None), int(cfg.has_alch), NC,
         wl.shape[1], s_j, 0 if i_base is None else int(i_base), ptr(wl),
         ptr(nw), ptr(rows), ptr(pT), ptr(box), ptr(params), c_ptr, ptr(f_i),
@@ -935,9 +1038,9 @@ def colpair_cuda(cfg: KernelCfg, rows, pT, wl, nw, box, params,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"colpair kernel launch failed: CUDA error {err}")
-    if i_base is None:
-        return f_i, e
-    return f_i, f_j, e
+    if two_out:
+        return f_i, f_j, e
+    return f_i, e
 
 
 # ---------------------------------------------------------------------------

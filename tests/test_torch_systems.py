@@ -160,8 +160,9 @@ def test_fast_sim_needs_cuda_unless_cpu_is_asked(systems):
 
 def test_port_imports_no_jax():
     """Every module of the port (MdSim's cell-grid path, the hydration
-    path and the parallel package among them), and chip_smoke, import
-    without loading jax, flax or any molchanica_tpu module."""
+    path, the parallel package, the barostat, snapshots and the probe
+    among them), and chip_smoke, import without loading jax, flax or any
+    molchanica_tpu module."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import molchanica_tpu_torch as p\n"
@@ -175,7 +176,8 @@ def test_port_imports_no_jax():
         "'md.alchemical', 'properties.water_sol', 'molecules.spec_json', "
         "'ops.pme2', 'parallel', 'parallel.comm', 'parallel.launch', "
         "'parallel.spatial', 'parallel.spatial_colpair', "
-        "'parallel.dryrun']\n"
+        "'parallel.dryrun', 'md.barostat', 'md.snapshot', "
+        "'ops.probe_prefetch']\n"
         "missing = [m for m in need if 'molchanica_tpu_torch.' + m "
         "not in sys.modules]\n"
         "print(len([m for m in sys.modules "

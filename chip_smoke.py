@@ -90,6 +90,17 @@ direct_force_parity). Excluded solute pairs enter the kernels at ~1e5
 kcal/mol/A and are subtracted again, so the whole-array ratio alone would
 let an error of a whole site force through everywhere else.
 
+Every colpair instance checked against its plain version (phases 4, 12,
+15, 16, 18-20) is also held to two more gates: the kernel's own count of
+the pairs that passed its cutoff and mask test (the launch's `counts`
+pointer) equals colpair_plain's count but for pairs whose float32 r^2
+lies within NEAR_RC of rc^2 (counted on the plain side), so no in-cutoff
+pair is dropped unseen; and each symmetric instance gives the same bits on
+two launches. A colpair kernel time is the device's: 50 launches
+captured in one CUDA graph and replayed (graph_ms), with the eager
+per-call time beside it and colpair_work's model of the launch (chunks,
+compacted batches, lane use, warps per SM).
+
 Fails (non-zero exit, no result line) without a CUDA device, outside a
 checkout of the repository, or when any phase fails.
 """
@@ -251,6 +262,30 @@ def cuda_ms(fn, n):
     return a.elapsed_time(b) / n
 
 
+def graph_ms(fn, n):
+    """Device ms per call of fn(): n calls captured in one CUDA graph,
+    timed over one replay after a warm one, so the host's cost per call
+    (the wrapper's checks and allocations) stays out. cuda_ms over eager
+    calls measures the host instead once a call's device time falls
+    below it."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
 def engine_instances(sim, torch):
     """(kernel, rows, wl, nw) of every colpair instance the engine runs, on
     its state's tables: the L and Q subsets of the species split (force-only
@@ -280,29 +315,78 @@ def pair_ops(cfg) -> int:
     return ops
 
 
+def pair_count_check(name, count, stats):
+    """The kernel's pair counter against colpair_plain's count on the same
+    inputs: equal, or apart by no more than the pairs whose float32 r^2
+    lies within NEAR_RC of rc^2 (an fma moves r^2 by an ulp there)."""
+    from molchanica_tpu_torch.ops.colpair import NEAR_RC
+
+    p, near = stats["pairs"], stats["pairs_near_rc"]
+    say(f"[pairs] {name}: kernel {count}, plain {p}, |diff| "
+        f"{abs(count - p)} (allowed {near}: pairs with r^2 within "
+        f"{NEAR_RC:g} rc^2 of rc^2)")
+    if abs(count - p) > near:
+        raise SystemExit(f"{name}: the kernel counted {count} pairs, the "
+                         f"plain version {p}")
+
+
+def work_line(work, n_sm) -> str:
+    """colpair_work's model of one launch, for the time lines."""
+    return (f"{work['blocks']} blocks ({work['parts']} parts), "
+            f"{work['warps'] / n_sm:.1f} warps per SM launched, "
+            f"{work['busy_warps'] / n_sm:.1f} with a chunk; {work['chunks']} "
+            f"chunks ({work['slots']} j slots, {work['tested']} slot pairs "
+            f"tested, at most {work['max_warp_chunks']} per warp, "
+            f"{work['max_cluster_chunks']} per cluster), {work['pairs']} "
+            f"pairs in {work['batches']} batches, lane use "
+            f"{work['lane_use']:.3f}")
+
+
+def work_counts(work) -> dict:
+    """colpair_work's counts, without its per-chunk table and keys."""
+    return {k: v for k, v in work.items() if k not in ("table", "keys")}
+
+
 def instance_parity(kern, rows, pT, wl, nw, box, torch, couples=(None,),
                     couple0=None):
     """One colpair instance against colpair_plain on the same inputs, at
     each coupling in `couples` (None: `couple0`, the state's own); timed
     at the first. Two-output instances (cross) are compared over their i
-    rows and j slots together. Returns its JSON kernel entry, with the
+    rows and j slots together; the kernel's pair counter is held to the
+    plain count (pair_count_check), and a symmetric instance to the same
+    bits on a second launch. Returns its JSON kernel entry, with the
     worst errors over `couples` and the plain run's stats."""
     from molchanica_tpu_torch.ops.colpair import (ICL, colpair_cuda,
                                                   colpair_parity,
-                                                  colpair_plain)
+                                                  colpair_plain,
+                                                  colpair_work)
 
     dev = rows.device
     cpls = [couple0 if c is None else
             torch.tensor(c, dtype=torch.float32, device=dev) for c in couples]
     S = rows.shape[0]
+    sym = not kern.cfg.triangular and kern.cfg.cross is None
     worst = dict(err=0.0, rel_f=0.0, rel_e=0.0)
     for c, cpl in zip(couples, cpls):
+        at = "" if c is None else f" couple={c:g}"
+        n_k = torch.zeros(1, dtype=torch.int64, device=dev)
         out_k = colpair_cuda(kern.cfg, rows, pT, wl, nw, box,
-                             kern.params(dev), cpl)
+                             kern.params(dev), cpl, counts=n_k)
+        if sym:
+            again = colpair_cuda(kern.cfg, rows, pT, wl, nw, box,
+                                 kern.params(dev), cpl)
         stats = {}
         out_p = colpair_plain(rows, pT, wl, nw, box, kern.cfg, cpl,
                               stats=stats)
         torch.cuda.synchronize()
+        pair_count_check(kern.name + at, int(n_k), stats)
+        if sym:
+            same = all(torch.equal(a, b) for a, b in zip(out_k, again))
+            say(f"[parity] {kern.name}{at}: two launches bitwise equal: "
+                f"{same}")
+            if not same:
+                raise SystemExit(f"{kern.name}{at}: the symmetric kernel "
+                                 "is not deterministic")
         f_k, e_k = torch.cat(out_k[:-1]), out_k[-1]
         f_p, elj_p, ec_p = torch.cat(out_p[:-2]), out_p[-2], out_p[-1]
         rel_f, rel_e = colpair_parity(f_k, e_k.sum(1), f_p, stats)
@@ -311,7 +395,6 @@ def instance_parity(kern, rows, pT, wl, nw, box, torch, couples=(None,),
         e_kern = float(e_k.sum())
         e_plain = float(elj_p + ec_p)
         rel_tot = abs(e_kern - e_plain) / max(abs(e_plain), 1e-30)
-        at = "" if c is None else f" couple={c:g}"
         say(f"[parity] {kern.name}{at} S={S} NC={S // ICL} "
             f"max_entries={int(nw.max())} pairs={stats['pairs']} "
             f"max|dF|/max|F|={err / f_max:.3e} (max|dF|={err:.4e}, "
@@ -329,12 +412,13 @@ def instance_parity(kern, rows, pT, wl, nw, box, torch, couples=(None,),
         worst = dict(err=max(worst["err"], err),
                      rel_f=max(worst["rel_f"], rel_f),
                      rel_e=max(worst["rel_e"], rel_e))
-    ms = cuda_ms(lambda: colpair_cuda(kern.cfg, rows, pT, wl, nw, box,
-                                      kern.params(dev), cpls[0]), 50)
+    launch = lambda: colpair_cuda(kern.cfg, rows, pT, wl, nw, box,
+                                  kern.params(dev), cpls[0])
+    ms, call_ms = graph_ms(launch, 50), cuda_ms(launch, 50)
     plain_ms = cuda_ms(lambda: colpair_plain(rows, pT, wl, nw, box,
                                              kern.cfg, cpls[0]), 3)
     ops = stats["pairs"] * pair_ops(kern.cfg)
-    sym = not kern.cfg.triangular and kern.cfg.cross is None
+    work = colpair_work(rows, pT, wl, nw, box, kern.cfg)
     if sym:
         # the symmetric table evaluates each unordered pair from both of
         # its sites; the least work for the same forces and energies is
@@ -352,20 +436,26 @@ def instance_parity(kern, rows, pT, wl, nw, box, torch, couples=(None,),
         name=kern.name, route="cuda",
         source="molchanica_tpu_torch/csrc/colpair.cu", replaces=K1_REPLACES,
         launches=0, max_abs_err=worst["err"], ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_ops, t_bytes),
+        call_ms=call_ms, bound_ms=max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes",
-        library_ms=None, pairs=stats["pairs"], S=S, bytes=nbytes,
-        site_rel_err=worst["rel_f"], cluster_rel_err_e=worst["rel_e"])
+        library_ms=None, pairs=stats["pairs"], kernel_pairs=int(n_k),
+        pairs_near_rc=stats["pairs_near_rc"], S=S, bytes=nbytes,
+        site_rel_err=worst["rel_f"], cluster_rel_err_e=worst["rel_e"],
+        work=work_counts(work))
     if sym:
         entry.update(ordered_bound_ms=max(ordered_ops / PEAK_FP32 * 1e3,
                                           t_bytes))
-    say(f"[time] {kern.name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+    say(f"[time] {kern.name}: kernel {ms:.4f} ms (device; {call_ms:.4f} ms "
+        f"per eager call), plain {plain_ms:.3f} ms, "
         f"bound {entry['bound_ms']:.5f} ms ({entry['bound_by']}; "
         + (f"{stats['pairs'] // 2} unordered pairs x "
            f"{pair_ops(kern.cfg) + SYM_NO_REACTION_OPS} FP32 ops; the "
            f"{stats['pairs']} ordered pairs x {pair_ops(kern.cfg)} it "
            f"evaluates {entry['ordered_bound_ms']:.5f} ms)" if sym else
            f"{stats['pairs']} pairs x {pair_ops(kern.cfg)} FP32 ops)"))
+    say(f"[work] {kern.name}: "
+        + work_line(work, torch.cuda.get_device_properties(dev)
+                    .multi_processor_count))
     return entry
 
 
@@ -767,7 +857,8 @@ def shard_rank(rank, n_dev, device, plan, halo, rows, wl, nw, box, n_calls):
 
     from molchanica_tpu_torch.ops.colpair import (ColpairDirect, colpair_cuda,
                                                   colpair_parity,
-                                                  colpair_plain)
+                                                  colpair_plain,
+                                                  colpair_work)
     from molchanica_tpu_torch.parallel.spatial_colpair import (
         block, make_sharded_colpair_direct)
 
@@ -791,12 +882,16 @@ def shard_rank(rank, n_dev, device, plan, halo, rows, wl, nw, box, n_calls):
         kern = sh.kernel
         i_base = halo * sh.B
         pT, wl_loc = sh.local_inputs(rows_b, wl_b)
+        n_k = torch.zeros(1, dtype=torch.int64, device=device)
         f_i, f_j, e = colpair_cuda(kern.cfg, rows_b, pT, wl_loc, nw_b, box,
-                                   kern.params(device), couple, i_base=i_base)
+                                   kern.params(device), couple, i_base=i_base,
+                                   counts=n_k)
         stats = {}
         p_i, p_j, elj_p, ec_p = colpair_plain(rows_b, pT, wl_loc, nw_b, box,
                                               kern.cfg, couple, stats=stats,
                                               i_base=i_base)
+        work = colpair_work(rows_b, pT, wl_loc, nw_b, box, kern.cfg,
+                            i_base=i_base)
         torch.cuda.synchronize()
 
         def sites(a_i, a_j):
@@ -815,8 +910,11 @@ def shard_rank(rank, n_dev, device, plan, halo, rows, wl, nw, box, n_calls):
         for r in range(n_dev):              # one rank on the card at a time
             dist.barrier()
             if r == rank:
-                ms = cuda_ms(lambda: kern(rows_b, pT, wl_loc, nw_b, box,
-                                          couple), 20)
+                ms = graph_ms(lambda: colpair_cuda(
+                    kern.cfg, rows_b, pT, wl_loc, nw_b, box,
+                    kern.params(device), couple, i_base=i_base), 20)
+                k_call_ms = cuda_ms(lambda: kern(rows_b, pT, wl_loc, nw_b,
+                                                 box, couple), 20)
                 plain_ms = cuda_ms(lambda: colpair_plain(
                     rows_b, pT, wl_loc, nw_b, box, kern.cfg, couple,
                     i_base=i_base), 3)
@@ -834,9 +932,13 @@ def shard_rank(rank, n_dev, device, plan, halo, rows, wl, nw, box, n_calls):
         nbytes = (rows_b.numel() + pT.numel() + wl_loc.numel() + nw_b.numel()
                   + 3 + 64 + f_i.numel() + f_j.numel() + e.numel()) * 4
         out[we] = dict(
-            name=kern.name, pairs=stats["pairs"], err=err,
+            name=kern.name, pairs=stats["pairs"], kernel_pairs=int(n_k),
+            pairs_near_rc=stats["pairs_near_rc"],
+            work=work_counts(work),
+            err=err,
             f_max=float(f_p.abs().max()), e_kernel=e_k, e_plain=e_p,
-            rel_f=rel_f, rel_e=rel_e, ms=ms, plain_ms=plain_ms,
+            rel_f=rel_f, rel_e=rel_e, ms=ms, kernel_call_ms=k_call_ms,
+            plain_ms=plain_ms,
             call_ms=call_ms, exchange_in_ms=in_ms, reduce_ms=red_ms,
             launches=launches, calls=n_calls, nbytes=nbytes,
             s_local=sh.s_local, e_lj=float(e_lj), e_c=float(e_c),
@@ -877,16 +979,18 @@ def shard_phase(asys, d, n_calls, torch, np):
     pT = rows.T.contiguous()
     for we in (True, False):
         one = ColpairDirect(plan, we, range_tables=True)
+        n_k = torch.zeros(1, dtype=torch.int64, device=rows.device)
         f1, e1 = colpair_cuda(one.cfg, rows, pT, wl, nw, boxt,
-                              one.params(rows.device))
+                              one.params(rows.device), counts=n_k)
         stats = {}
         f_p, elj_p, ec_p = colpair_plain(rows, pT, wl, nw, boxt, one.cfg,
                                          stats=stats)
         torch.cuda.synchronize()
+        pair_count_check(f"{one.name} (one device)", int(n_k), stats)
         rel_f, rel_e = colpair_parity(f1, e1.sum(1), f_p, stats)
         err = float((f1 - f_p).abs().max()) / float(f_p.abs().max())
-        ms = cuda_ms(lambda: colpair_cuda(one.cfg, rows, pT, wl, nw, boxt,
-                                          one.params(rows.device)), 20)
+        ms = graph_ms(lambda: colpair_cuda(one.cfg, rows, pT, wl, nw, boxt,
+                                           one.params(rows.device)), 20)
         say(f"[shard] one device {one.name}: vs plain max|dF|/max|F|="
             f"{err:.3e}, per site {rel_f:.3e}, per cluster {rel_e:.3e}; "
             f"kernel {ms:.4f} ms on all {plan.n_clusters} clusters "
@@ -916,7 +1020,8 @@ def shard_phase(asys, d, n_calls, torch, np):
             say(f"[shard] rank {r['rank']} {name}: pairs={x['pairs']} "
                 f"max|dF|/max|F|={x['err'] / x['f_max']:.3e} per site "
                 f"{x['rel_f']:.3e} per cluster {x['rel_e']:.3e} rel_e "
-                f"{rel_tot:.3e}; kernel {x['ms']:.4f} ms, plain "
+                f"{rel_tot:.3e}; kernel {x['ms']:.4f} ms (device; "
+                f"{x['kernel_call_ms']:.4f} ms per eager call), plain "
                 f"{x['plain_ms']:.3f} ms; sharded call {x['call_ms']:.3f} "
                 f"ms (exchange in {x['exchange_in_ms']:.3f}, reduce "
                 f"{x['reduce_ms']:.3f}); launches {x['launches']} of "
@@ -930,6 +1035,11 @@ def shard_phase(asys, d, n_calls, torch, np):
             if x["launches"] != x["calls"]:
                 raise SystemExit(f"{name} rank {r['rank']}: {x['launches']}"
                                  f" launches in {x['calls']} calls")
+            pair_count_check(f"{name} rank {r['rank']}", x["kernel_pairs"],
+                             x)
+            say(f"[work] {name} rank {r['rank']}: "
+                + work_line(x["work"], torch.cuda.get_device_properties(0)
+                            .multi_processor_count))
         f1, e1, stats = refs[we]
         f_sh = rk[0]["f"]
         err = float((f_sh - f1).abs().max()) / float(f1.abs().max())
@@ -961,10 +1071,11 @@ def shard_phase(asys, d, n_calls, torch, np):
             bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             library_ms=None, ranks=N_SHARD, halo=halo,
-            per_rank=[{k: x[k] for k in ("pairs", "ms", "plain_ms",
-                                         "call_ms", "exchange_in_ms",
-                                         "reduce_ms", "launches", "rel_f",
-                                         "rel_e")} for x in rk],
+            per_rank=[{k: x[k] for k in ("pairs", "kernel_pairs", "ms",
+                                         "plain_ms", "call_ms",
+                                         "exchange_in_ms", "reduce_ms",
+                                         "launches", "rel_f", "rel_e",
+                                         "work")} for x in rk],
             assembled_rel_err=err))
         summary[name] = dict(call_ms=mean("call_ms"),
                              exchange_in_ms=mean("exchange_in_ms"),
@@ -1842,6 +1953,8 @@ def main():
     if args.md_profile:
         profile_steps(md, args.md_profile, torch, args.out, "md_")
     if args.out:
+        with open(os.path.join(args.out, "build_log.txt"), "w") as fh:
+            fh.write(cuda_build.build_log)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
             json.dump(dict(card=card, torch=torch.__version__,
                            cuda=torch.version.cuda, ms_per_step=ms_step,

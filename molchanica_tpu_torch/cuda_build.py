@@ -101,7 +101,7 @@ def load_library():
     if _lib is None:
         lib = ctypes.CDLL(build())
         _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.colpair_launch.argtypes = [_I] * 9 + [_P] * 11
+        lib.colpair_launch.argtypes = [_I] * 10 + [_P] * 13
         lib.colpair_launch.restype = ctypes.c_int
         lib.direct_force_launch.argtypes = [_I] * 7 + [_F] + [_P] * 5
         lib.direct_force_launch.restype = ctypes.c_int

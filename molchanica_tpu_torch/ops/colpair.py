@@ -22,9 +22,11 @@ csrc/colpair.cu for CUDA tensors, and `colpair_plain` (the same function
 in plain torch) for CPU tensors. Its shard variant (`local_shape`) runs
 one block of clusters of a sorted state split over several processes
 (parallel/spatial_colpair.py); its cross variant (`cross`) runs a solute
-subset against the master array. `pairlist_colpair_energy` evaluates the
-same pair math over an explicit pair list, so excluded pairs that the
-kernel adds are subtracted to float32 roundoff.
+subset against the master array. `colpair_work` is a plain model of the
+CUDA kernel's schedule (its work items, 32-slot j chunks and compacted
+pair batches) for the tests and chip_smoke.py. `pairlist_colpair_energy`
+evaluates the same pair math over an explicit pair list, so excluded
+pairs that the kernel adds are subtracted to float32 roundoff.
 """
 from __future__ import annotations
 
@@ -41,6 +43,16 @@ ZBITS = 14        # z quantization bits in the sort key
 LANES = 128       # j slots per slice
 PER_SLICE_K = 64  # window entries per cluster (doubled on overflow)
 CHUNK_ELEMS = 1 << 25  # pair-tile elements per chunk of colpair_plain
+# csrc/colpair.cu's schedule: a grid of (cluster, part) blocks of
+# WORK_WARPS warps each; a cluster's window is cut into CHUNK-slot j chunks
+CHUNK = 32
+WORK_WARPS = 4
+# blocks the grid is sized to reach: 8 per SM of an H100 SXM (132 SMs)
+GRID_BLOCKS = 8 * 132
+# pairs whose float32 r^2 lies within this of rc^2 (relative) may count on
+# one side of the cutoff in one float32 evaluation and on the other side
+# in another (an fma, or its absence, moves r^2 by an ulp)
+NEAR_RC = 1e-6
 _TWO_OVER_SQRT_PI = 2.0 / math.sqrt(math.pi)
 
 # r^2 floor (A^2): closer pairs (mid-clash, or excluded intramolecular
@@ -648,7 +660,10 @@ def colpair_plain(rows, pT, wl, nw, box, cfg, couple=None, stats=None,
     s_j], i rows then j slots), each site's sum over its pairs of the pair
     force's term magnitudes (`_pair_tile`'s mag); "e_cluster" [NC], each
     i-cluster's energy (LJ + Coulomb); "e_abs" [NC], its sum of pair
-    energy term magnitudes.
+    energy term magnitudes; "pairs_near_rc", the count of unmasked pairs
+    whose r^2 lies within NEAR_RC * rc^2 of rc^2, on either side; and, if
+    the dict holds the key "keys" when it is passed, "keys": the sorted
+    int64 keys of the evaluated pairs, (i row * s_j + j slot) * 64 + code.
     """
     NC = rows.shape[0] // ICL
     dev = rows.device
@@ -672,11 +687,14 @@ def colpair_plain(rows, pT, wl, nw, box, cfg, couple=None, stats=None,
     ehalf = 0.5 if sym else 1.0
     e_lj = torch.zeros((), dtype=rows.dtype, device=dev)
     e_c = torch.zeros((), dtype=rows.dtype, device=dev)
+    want_keys = stats is not None and "keys" in stats
+    key_parts = []
     if stats is not None:
         fa_i = fa_j = torch.zeros_like(f_j[:, 0])
         if two_out:
             fa_i = torch.zeros_like(f_i[:, 0])
-        stats.update(pairs=0, e_cluster=torch.zeros_like(f_i[:NC, 0]),
+        stats.update(pairs=0, pairs_near_rc=0,
+                     e_cluster=torch.zeros_like(f_i[:NC, 0]),
                      e_abs=torch.zeros_like(f_i[:NC, 0]))
     lx, ly, lz = box[0], box[1], box[2]
     lanes = _arange(LANES, dev)
@@ -766,10 +784,16 @@ def colpair_plain(rows, pT, wl, nw, box, cfg, couple=None, stats=None,
                 e_c = e_c + ehalf * ec.sum()
         if stats is not None:
             r2 = dx * dx + dy * dy + dz * dz
-            ok = jok & (r2 < cfg.rc2)
-            if sym:
-                ok = ok & (r2 > 1e-9)
+            tested = jok & (r2 > 1e-9) if sym else jok
+            ok = tested & (r2 < cfg.rc2)
             stats["pairs"] += int(torch.count_nonzero(ok))
+            stats["pairs_near_rc"] += int(torch.count_nonzero(
+                tested & ((r2 - cfg.rc2).abs() <= NEAR_RC * cfg.rc2)))
+            if want_keys:
+                cc, ck, ci, cl = torch.nonzero(ok, as_tuple=True)
+                i_row = (cc + c0) * ICL + ci
+                key_parts.append((i_row * pT.shape[1] + gid[cc, ck, cl])
+                                 * 64 + code[cc, ck])
             dn = 2.0 * mag[0] * torch.sqrt(r2)                   # [c,k,I,L]
             fa_i[c0 * ICL:c1 * ICL] += dn.sum(dim=(1, 3)).reshape(-1)
             if not sym:
@@ -781,9 +805,126 @@ def colpair_plain(rows, pT, wl, nw, box, cfg, couple=None, stats=None,
                 stats["e_abs"][c0:c1] += ehalf * mag[1].sum(dim=(1, 2, 3))
     if stats is not None:
         stats["f_abs"] = torch.cat([fa_i, fa_j]) if two_out else fa_j
+    if want_keys:
+        stats["keys"] = _sorted_keys(key_parts, dev)
     if two_out:
         return f_i, f_j, e_lj, e_c
     return f_i, e_lj, e_c
+
+
+def _sorted_keys(parts, device):
+    return torch.sort(torch.cat(
+        parts + [torch.zeros(0, dtype=torch.int64, device=device)]))[0]
+
+
+def colpair_parts(nc: int) -> int:
+    """Blocks per i-cluster in csrc/colpair.cu's grid: at least 8, enough
+    for the grid to reach GRID_BLOCKS, at most 64. From static shapes
+    only, so a launch needs no host sync."""
+    return int(min(64, max(8, -(-GRID_BLOCKS // max(int(nc), 1)))))
+
+
+def colpair_work(rows, pT, wl, nw, box, cfg, i_base=None, keys=False):
+    """Plain model of csrc/colpair.cu's schedule on the kernel's inputs
+    (those of `colpair_plain`). The grid is NC x colpair_parts(NC) blocks
+    of WORK_WARPS warps; each cluster's active entries are cut into
+    CHUNK-slot j chunks clipped to [lo, hi), numbered across the entries,
+    and chunk k goes to warp k mod (parts * WORK_WARPS) of the cluster.
+    Every chunk tests its slots against the cluster's 64 i rows with the
+    kernel's masks and r^2 < rc^2 and compacts the pairs that pass into
+    32-lane batches. Returns a dict of counts: parts, blocks, warps
+    (launched), busy_warps (with a chunk), chunks, slots (in-run j slots
+    visited), tested (slot pairs tested), pairs (compacted), batches,
+    lane_use (pairs per batch lane), max_warp_chunks, max_cluster_chunks;
+    "table", per chunk its cluster, warp, entry, [lo, hi) and pair count;
+    with `keys`, "keys", the sorted pair keys as colpair_plain's stats
+    give them."""
+    NC = rows.shape[0] // ICL
+    dev = rows.device
+    s_j = pT.shape[1]
+    K = wl.shape[1] // 3
+    parts = colpair_parts(NC)
+    G = parts * WORK_WARPS
+    w3 = wl.reshape(NC, K, 3).long()
+    lo, hi, code = (w3[..., a].reshape(-1) for a in range(3))
+    act = (_arange(K, dev)[None, :] < nw.long()[:, None]).reshape(-1)
+    nch = torch.where(act & (hi > lo), (hi - lo + CHUNK - 1) // CHUNK,
+                      torch.zeros_like(lo))
+    k0 = torch.cumsum(nch.reshape(NC, K), 1).reshape(-1) - nch
+    n_chunks = int(nch.sum())
+    ent = torch.repeat_interleave(_arange(NC * K, dev), nch)
+    kk = _arange(n_chunks, dev) - (torch.cumsum(nch, 0) - nch)[ent]
+    c_of = ent // K
+    warp = (k0[ent] + kk) % G
+    c_lo = lo[ent] + kk * CHUNK
+    c_hi = torch.minimum(c_lo + CHUNK, hi[ent])
+    warp_chunks = torch.zeros(NC * G, dtype=torch.int64, device=dev)
+    warp_chunks.index_add_(0, c_of * G + warp, torch.ones_like(warp))
+    base = 0 if i_base is None else int(i_base)
+    cross = cfg.cross is not None
+    sym = not cfg.triangular and not cross
+    irows = rows.reshape(NC, ICL, 8)
+    lanes = _arange(CHUNK, dev)
+    counts = torch.zeros(n_chunks, dtype=torch.int64, device=dev)
+    slots, key_parts = 0, []
+    step = max(1, CHUNK_ELEMS // (ICL * CHUNK))
+    for t0 in range(0, n_chunks, step):
+        sl = slice(t0, min(n_chunks, t0 + step))
+        cc, e = c_of[sl], ent[sl]
+        gid = c_lo[sl, None] + lanes                              # [t, L]
+        in_run = (gid < c_hi[sl, None]) & (gid < s_j)
+        pj = pT[:, torch.clamp(gid, 0, s_j - 1)]                  # [8,t,L]
+        sh = [((((code[e] >> (2 * a)) & 3) - 1).to(rows.dtype)
+               * box[a])[:, None] for a in range(3)]
+        ir = irows[cc]                                            # [t,I,8]
+        ii = lambda k: ir[:, :, k:k + 1]                          # [t,I,1]
+        jj = lambda v: v[:, None, :]                              # [t,1,L]
+        gi, gj = ii(7), jj(pj[7])
+        ok = jj(in_run)
+        if cross:
+            wlo, whi = cfg.cross
+            ok = ok & (((gj >= wlo) & (gj < whi)) | (gj > gi))
+        else:
+            if cfg.triangular:
+                # the triangle bound on the entries over the own slots
+                cl_base = base + cc * ICL
+                own = (lo[e] < cl_base + ICL) & (hi[e] > cl_base)
+                islot = cl_base[:, None] + _arange(ICL, dev)      # [t, I]
+                ok = ok & (~own[:, None, None]
+                           | (jj(gid) > islot[:, :, None]))
+            ok = ok & (gj != gi)
+            if cfg.water_filter is not None:
+                wlo, whi = cfg.water_filter
+                ok = ok & (((gi >= wlo) & (gi < whi))
+                           | ((gj >= wlo) & (gj < whi)))
+        dx = ii(0) - jj(pj[0] + sh[0])
+        dy = ii(1) - jj(pj[1] + sh[1])
+        dz = ii(2) - jj(pj[2] + sh[2])
+        r2 = dx * dx + dy * dy + dz * dz
+        ok = ok & (r2 < cfg.rc2)
+        if sym:
+            ok = ok & (r2 > 1e-9)
+        counts[sl] = ok.sum(dim=(1, 2))
+        slots += int(in_run.sum())
+        if keys:
+            ct, ci, cl = torch.nonzero(ok, as_tuple=True)
+            key_parts.append(((cc[ct] * ICL + ci) * s_j + gid[ct, cl]) * 64
+                             + code[e][ct])
+    pairs = int(counts.sum())
+    batches = int(((counts + 31) // 32).sum())
+    out = dict(parts=parts, blocks=NC * parts, warps=NC * G,
+               busy_warps=int((warp_chunks > 0).sum()), chunks=n_chunks,
+               slots=slots, tested=ICL * slots, pairs=pairs,
+               batches=batches,
+               lane_use=pairs / (32 * batches) if batches else 0.0,
+               max_warp_chunks=int(warp_chunks.max()) if NC else 0,
+               max_cluster_chunks=(int(nch.reshape(NC, K).sum(1).max())
+                                   if NC else 0),
+               table=dict(cluster=c_of, warp=warp, entry=ent % K, lo=c_lo,
+                          hi=c_hi, pairs=counts))
+    if keys:
+        out["keys"] = _sorted_keys(key_parts, dev)
+    return out
 
 
 def colpair_parity(f, e_cluster, f_ref, stats):
@@ -971,18 +1112,22 @@ class ColpairDirect:
 
 
 def colpair_cuda(cfg: KernelCfg, rows, pT, wl, nw, box, params,
-                 couple=None, i_base=None):
+                 couple=None, i_base=None, counts=None):
     """Launch csrc/colpair.cu on the current stream: (f [S, 3], per-cluster
     energies [NC, 2] = (e_lj, e_c)); with `i_base` the shard variant,
     (f_i [NC*ICL, 3], f_j [s_j, 3], e [NC, 2]) for i rows sitting at slot
     i_base of the j array pT [8, s_j]; with `cfg.cross` the same triple
-    for a subset i array against the master pT. The outputs are made
-    here: the j reactions (and the i-forces where they share its buffer)
-    zeroed, for the kernel adds them with atomics; a separate i-force
-    buffer, which the kernel stores row by row, left unset. has_alch
-    instances read `couple` through its device pointer (a 0-d float32
-    tensor, changed per window and shifted inside dhdl without a host
-    sync). Counts no launch; `ColpairDirect` does."""
+    for a subset i array against the master pT. The outputs and the
+    kernel's scratch (per-(part, cluster) partial i-forces and energies,
+    colpair_parts(NC) parts) are made here: the j reactions (and the
+    i-forces where they share its buffer) zeroed, for the kernel adds
+    them with atomics; a separate i-force buffer and the energies, which
+    the kernel's part sum stores, left unset. has_alch instances read
+    `couple` through its device pointer (a 0-d float32 tensor, changed per
+    window and shifted inside dhdl without a host sync). `counts`, a
+    one-element int64 tensor on the device, receives the number of pairs
+    that passed the cutoff and mask test, added to what it holds. Counts
+    no launch; `ColpairDirect` does."""
     import ctypes
 
     from ..cuda_build import load_library
@@ -994,12 +1139,16 @@ def colpair_cuda(cfg: KernelCfg, rows, pT, wl, nw, box, params,
                         ("pT", pT, torch.float32),
                         ("wl", wl, torch.int32), ("nw", nw, torch.int32),
                         ("box", box, torch.float32),
-                        ("params", params, torch.float32)):
+                        ("params", params, torch.float32)) + (
+            (("counts", counts, torch.int64),) if counts is not None
+            else ()):
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"colpair: {name} must be a contiguous {dt} "
                              f"tensor on {dev}")
     if box.numel() != 3:
         raise ValueError("colpair: box must hold 3 extents")
+    if counts is not None and counts.numel() != 1:
+        raise ValueError("colpair: counts must hold one int64")
     cross = cfg.cross is not None
     if cross and i_base is not None:
         raise ValueError("colpair: cross has no shard variant")
@@ -1025,16 +1174,19 @@ def colpair_cuda(cfg: KernelCfg, rows, pT, wl, nw, box, params,
         f_i = f_j = torch.zeros((NC * ICL, 3), **f32)
     else:                       # symmetric: no reactions, rows stored
         f_i = f_j = torch.empty((NC * ICL, 3), **f32)
-    e = torch.zeros((NC, 2), **f32)
+    e = torch.empty((NC, 2), **f32)
+    parts = colpair_parts(NC)
+    scratch = torch.empty(parts * NC * (3 * ICL + 2), **f32)
     table = _TABLE_CROSS if cross else (
         _TABLE_TRI if cfg.triangular else _TABLE_SYM)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     err = lib.colpair_launch(
         table, _MODES[cfg.mode], int(cfg.want_energy),
-        int(cfg.water_filter is not None), int(cfg.has_alch), NC,
+        int(cfg.water_filter is not None), int(cfg.has_alch), NC, parts,
         wl.shape[1], s_j, 0 if i_base is None else int(i_base), ptr(wl),
         ptr(nw), ptr(rows), ptr(pT), ptr(box), ptr(params), c_ptr, ptr(f_i),
-        ptr(f_j), ptr(e),
+        ptr(f_j), ptr(e), ptr(scratch),
+        ctypes.c_void_p(None) if counts is None else ptr(counts),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"colpair kernel launch failed: CUDA error {err}")

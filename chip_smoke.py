@@ -23,7 +23,8 @@ Phases, each printed on lines of its own:
      (method cells_pme, the cell-grid kernel K2): construction;
   8. K2 parity: on the real cell grid after the first rebuild, the CUDA
      kernel against its plain torch version on the same center rows and
-     ghost array;
+     ghost array; its pair count and a second launch's bits; its device
+     time and direct_force_work's model of the launch;
   9. the MdSim path: a warm-up call and one timed call; K2 launch counts
      over exactly those calls, against force_evals and against
      n + ceil(n/20) + 1 per call;
@@ -77,7 +78,9 @@ Phases, each printed on lines of its own:
      tau 2 ps), run(0.002, n, n/2) (--npt-steps); each period's pressure
      and box, the box moved, T in band, rigid waters, launches = 2 x the
      force evaluations;
- 23. the kernel JSON line, the card line, and the final JSON result line.
+ 23. K2 against its plain version on two grids of random sites at water
+     density, moved after the rebuild: capacity 128, and nc = 3;
+ 24. the kernel JSON line, the card line, and the final JSON result line.
 An NVT hold (the mean temperature of further FastSim steps near 310 K)
 runs only when --hold N asks for it.
 
@@ -96,10 +99,13 @@ the pairs that passed its cutoff and mask test (the launch's `counts`
 pointer) equals colpair_plain's count but for pairs whose float32 r^2
 lies within NEAR_RC of rc^2 (counted on the plain side), so no in-cutoff
 pair is dropped unseen; and each symmetric instance gives the same bits on
-two launches. A colpair kernel time is the device's: 50 launches
-captured in one CUDA graph and replayed (graph_ms), with the eager
-per-call time beside it and colpair_work's model of the launch (chunks,
-compacted batches, lane use, warps per SM).
+two launches. K2 (phases 8 and 23) is held to the same two: its count
+equal to direct_force_plain's (the kernel's distance test is the plain
+version's float32 expression), and the same bits on two launches. A
+kernel time is the device's: 50 launches captured in one CUDA graph and
+replayed (graph_ms), with the eager per-call time beside it and, for
+colpair and K2, colpair_work's or direct_force_work's model of the launch
+(chunks, compacted batches, lane use, warps per SM).
 
 Fails (non-zero exit, no result line) without a CUDA device, outside a
 checkout of the repository, or when any phase fails.
@@ -146,6 +152,20 @@ PROBE_REPLACES = "scripts/probe_prefetch.py:32"
 # counting): geometry and r^2 clamp 10, softcore LJ with the clip 38, A&S
 # Coulomb 30, force accumulation 7
 K2_PAIR_OPS = 10 + 38 + 30 + 7
+# K2 evaluates each in-cutoff pair from both of its cells; the least work
+# for the same forces and energies is each pair once with its reaction,
+# three adds more (K2's bound_ms; the pairs it evaluates: ordered_bound_ms)
+K2_REACTION_OPS = 3
+# K2 on two more grids (phase 23): (tag, seed, box, cutoff, sites per A^3).
+# Random sites at the density of water's three atoms (0.1 per A^3) on a
+# capacity-128 grid of 4 x 4 x 4 cells, and with OPC's M sites (0.134) on
+# an nc = 3 grid at config 3's cutoff (capacity 256); moved after the
+# rebuild, at couple 0.5 with the first sites coupled
+K2_GRIDS = (("C=128", 1, (30.0, 31.0, 32.0), 7.0, 0.1),
+            ("nc=3", 2, (28.0, 28.0, 28.0), 9.0, 0.134))
+K2_GRID_MOVE = 0.3
+K2_GRID_COUPLE = 0.5
+K2_GRID_COUPLED = 5
 N_TIMED = 1000
 N_WARM = 200
 N_MD_TIMED = 200
@@ -552,26 +572,25 @@ def engine_parity(build, torch, lam=None, tag="engine"):
     return d_g
 
 
-def k2_parity(md, torch):
-    """K2 (csrc/direct_force.cu) against direct_force_plain on the cell
-    grid of the state after its first rebuild. Returns its JSON entry."""
-    from molchanica_tpu_torch.md.energy import apply_virtual_sites
+def k2_check(tag, plan, direct, center, ghost, couple, beta, torch):
+    """K2 (csrc/direct_force.cu) against direct_force_plain on one cell
+    grid: per slot and per cell within KERNEL_TOL_F / KERNEL_TOL_E of the
+    pair-term magnitudes, total energy within KERNEL_TOL_E_TOT; the kernel's
+    pair count (its `counts` pointer) equal to the plain count; two
+    launches the same bits. Returns (errors, plain stats, kernel output)."""
     from molchanica_tpu_torch.ops.direct_force import (cell_energies,
                                                        direct_force_cuda,
                                                        direct_force_parity,
                                                        direct_force_plain)
 
-    s = md.state
-    plan, direct = md._plan, md._direct
-    xv = apply_virtual_sites(s.positions, md.top)
-    sa, _, ovf = md._rebuild(xv, s.box)
-    center, ghost = direct.inputs(xv, s.box, sa)
-    args = (s.couple, md._beta)
-    out_k = direct_force_cuda(plan, center, ghost, *args)
+    n_k = torch.zeros(1, dtype=torch.int64, device=center.device)
+    out_k = direct_force_cuda(plan, center, ghost, couple, beta, counts=n_k)
+    again = direct_force_cuda(plan, center, ghost, couple, beta)
     stats = {}
-    out_p = direct_force_plain(center, ghost, direct.starts, *args,
+    out_p = direct_force_plain(center, ghost, direct.starts, couple, beta,
                                direct.rc2, stats=stats)
     torch.cuda.synchronize()
+    same = torch.equal(out_k, again)
     e_k = cell_energies(out_k, plan.n_cells)
     e_p = cell_energies(out_p, plan.n_cells)
     rel_f, rel_e = direct_force_parity(out_k[:, :3], e_k.sum(1),
@@ -581,39 +600,165 @@ def k2_parity(md, torch):
     tot_k, tot_p = float(e_k.sum()), float(e_p.sum())
     rel_tot = abs(tot_k - tot_p) / max(abs(tot_p), 1e-30)
     S = center.shape[0]
-    say(f"[parity] direct_force cells={plan.n_cells} C={plan.capacity} "
-        f"S={S} G={ghost.shape[1]} overflow={int(ovf)} "
-        f"pairs={stats['pairs']} slots={S * 9 * 3 * plan.capacity} "
+    say(f"[parity] {tag} nc={plan.nc} cells={plan.n_cells} "
+        f"C={plan.capacity} S={S} G={ghost.shape[1]} "
+        f"real={int((center[:, 7] > 0.5).sum())} pairs={stats['pairs']} "
+        f"slots={S * 9 * 3 * plan.capacity} "
         f"max|dF|/max|F|={err / f_max:.3e} (max|dF|={err:.4e}, "
         f"max|F|={f_max:.4e}) e_kernel={tot_k:.6f} e_plain={tot_p:.6f} "
         f"rel_e={rel_tot:.3e} (e_lj {float(e_k[:, 0].sum()):.4f} / "
         f"{float(e_p[:, 0].sum()):.4f}, e_c {float(e_k[:, 1].sum()):.4f} / "
         f"{float(e_p[:, 1].sum()):.4f})")
-    say(f"[parity] direct_force per slot max|dF|/scale={rel_f:.3e}, per "
-        f"cell |dE|/scale={rel_e:.3e} (limits {KERNEL_TOL_F:g}, "
+    say(f"[parity] {tag} per slot max|dF|/scale={rel_f:.3e}, per cell "
+        f"|dE|/scale={rel_e:.3e} (limits {KERNEL_TOL_F:g}, "
         f"{KERNEL_TOL_E:g}; total energy {KERNEL_TOL_E_TOT:g})")
+    say(f"[pairs] {tag}: kernel {int(n_k)}, plain {stats['pairs']}; two "
+        f"launches bitwise equal: {same}")
     if not (rel_f < KERNEL_TOL_F and rel_e < KERNEL_TOL_E
             and rel_tot < KERNEL_TOL_E_TOT):
-        raise SystemExit("direct_force: kernel and plain disagree")
-    ms = cuda_ms(lambda: direct_force_cuda(plan, center, ghost, *args), 20)
+        raise SystemExit(f"{tag}: kernel and plain disagree")
+    if int(n_k) != stats["pairs"]:
+        raise SystemExit(f"{tag}: the kernel counted {int(n_k)} pairs, the "
+                         f"plain version {stats['pairs']}")
+    if not same:
+        raise SystemExit(f"{tag}: two launches differ")
+    return (dict(err=err, rel_f=rel_f, rel_e=rel_e, rel_tot=rel_tot,
+                 kernel_pairs=int(n_k)), stats, out_k)
+
+
+def k2_work_line(work) -> str:
+    """direct_force_work's model of one launch, for the time lines."""
+    return (f"{work['active_blocks']} of {work['blocks']} blocks active "
+            f"({work['parts']} parts per cell), {work['warps_per_sm']:.1f} "
+            f"warps per SM; {work['scanned']} slots scanned, {work['real']} "
+            f"real, {work['staged']} staged, {work['tested']} pairs tested "
+            f"in {work['chunks']} chunks (at most {work['max_warp_chunks']} "
+            f"per warp), {work['pairs']} pairs in {work['batches']} batches, "
+            f"lane use {work['lane_use']:.3f}; math batches per SM "
+            f"{work['sm_batches_mean']:.1f} mean, {work['sm_batches_max']} "
+            f"max")
+
+
+def k2_parity(md, torch):
+    """Phase 8: K2 against direct_force_plain on MdSim's cell grid of the
+    state after its first rebuild (k2_check), timed by graph_ms with the
+    eager time beside it and direct_force_work's model of the launch.
+    Returns its JSON entry."""
+    from molchanica_tpu_torch.md.energy import apply_virtual_sites
+    from molchanica_tpu_torch.ops.direct_force import (direct_force_cuda,
+                                                       direct_force_plain,
+                                                       direct_force_work)
+
+    s = md.state
+    plan, direct = md._plan, md._direct
+    xv = apply_virtual_sites(s.positions, md.top)
+    sa, _, ovf = md._rebuild(xv, s.box)
+    center, ghost = direct.inputs(xv, s.box, sa)
+    args = (s.couple, md._beta)
+    say(f"[parity] direct_force overflow={int(ovf)}")
+    errs, stats, out_k = k2_check("direct_force", plan, direct, center,
+                                  ghost, *args, torch)
+    launch = lambda: direct_force_cuda(plan, center, ghost, *args)
+    ms, call_ms = graph_ms(launch, 50), cuda_ms(launch, 50)
     plain_ms = cuda_ms(lambda: direct_force_plain(
         center, ghost, direct.starts, *args, direct.rc2), 3)
-    t_ops = stats["pairs"] * K2_PAIR_OPS / PEAK_FP32 * 1e3
+    n_sm = torch.cuda.get_device_properties(center.device) \
+        .multi_processor_count
+    work = direct_force_work(center.cpu(), ghost.cpu(), direct.starts.cpu(),
+                             direct.rc2, n_sm)
+    t_ops = (stats["pairs"] / 2 * (K2_PAIR_OPS + K2_REACTION_OPS)
+             / PEAK_FP32 * 1e3)
+    t_ordered = stats["pairs"] * K2_PAIR_OPS / PEAK_FP32 * 1e3
     nbytes = (center.numel() + ghost.numel() + 2 + out_k.numel()) * 4
     t_bytes = nbytes / PEAK_BYTES * 1e3
+    S = center.shape[0]
     entry = dict(
         name="direct_force", route="cuda",
         source="molchanica_tpu_torch/csrc/direct_force.cu",
         replaces="molchanica_tpu/ops/pallas/direct_force.py:156",
-        launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_ops, t_bytes),
+        launches=0, max_abs_err=errs["err"], ms=ms, plain_ms=plain_ms,
+        call_ms=call_ms, bound_ms=max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes",
-        library_ms=None, pairs=stats["pairs"], S=S, bytes=nbytes,
-        site_rel_err=rel_f, cell_rel_err_e=rel_e, rel_e_total=rel_tot)
-    say(f"[time] direct_force: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {entry['bound_ms']:.5f} ms ({entry['bound_by']}; "
-        f"{stats['pairs']} pairs x {K2_PAIR_OPS} FP32 ops, {nbytes} bytes)")
+        ordered_bound_ms=max(t_ordered, t_bytes),
+        library_ms=None, pairs=stats["pairs"],
+        kernel_pairs=errs["kernel_pairs"], S=S, bytes=nbytes,
+        site_rel_err=errs["rel_f"], cell_rel_err_e=errs["rel_e"],
+        rel_e_total=errs["rel_tot"], work=work)
+    say(f"[time] direct_force: kernel {ms:.4f} ms (device; {call_ms:.4f} ms "
+        f"per eager call), plain {plain_ms:.3f} ms, bound "
+        f"{entry['bound_ms']:.5f} ms ({entry['bound_by']}; "
+        f"{stats['pairs'] // 2} unordered pairs x "
+        f"{K2_PAIR_OPS + K2_REACTION_OPS} FP32 ops, {nbytes} bytes; the "
+        f"{stats['pairs']} ordered pairs x {K2_PAIR_OPS} it evaluates "
+        f"{entry['ordered_bound_ms']:.5f} ms)")
+    say(f"[work] direct_force: {k2_work_line(work)}")
     return entry
+
+
+def k2_grid(seed, box, rc, density, torch, np, dev="cuda"):
+    """(plan, direct, center, ghost) of random sites at `density` per A^3
+    in `box`, binned at a rebuild and then moved by K2_GRID_MOVE A (rms per
+    axis) with their images fixed at the rebuild, so that some lie outside
+    [0, box) in their cells; LJ and charges drawn per site, the first
+    K2_GRID_COUPLED sites coupled."""
+    import types
+
+    from molchanica_tpu_torch.ops.direct_force import (DirectForce,
+                                                       image_shift,
+                                                       make_rebuild_fn,
+                                                       plan_window)
+
+    rng = np.random.default_rng(seed)
+    box = np.asarray(box, np.float32)
+    n = int(density * np.prod(box))
+    x0 = (rng.uniform(0, 1, (n, 3)) * box).astype(np.float32)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    top = types.SimpleNamespace(
+        charges=f32(rng.normal(0, 0.4, n)),
+        lj_sigma=f32(rng.uniform(2.8, 3.4, n)),
+        lj_eps=f32(rng.uniform(0.05, 0.2, n)),
+        couple_mask=f32(np.arange(n) < K2_GRID_COUPLED),
+        atom_mask=f32(np.ones(n)))
+    plan = plan_window(box, rc, n, n, x0=x0)
+    xt, bt = f32(x0), f32(box)
+    sa, _, ovf = make_rebuild_fn(plan, top.atom_mask)(xt, bt)
+    if int(ovf):
+        raise SystemExit(f"K2 grid seed {seed}: overflow at the rebuild")
+    x1 = xt + f32(rng.normal(0, K2_GRID_MOVE, (n, 3)))
+    direct = DirectForce(top, plan)
+    center, ghost = direct.inputs(x1, bt, sa, image_shift(xt, bt))
+    return plan, direct, center, ghost
+
+
+def k2_grid_phase(torch, np, dev="cuda"):
+    """Phase 23: K2 against its plain version on K2_GRIDS (a capacity-128
+    grid and an nc = 3 grid), with k2_check's gates and the kernel's time
+    (graph_ms). Returns a summary per grid."""
+    from molchanica_tpu_torch.ops.direct_force import direct_force_cuda
+    from molchanica_tpu_torch.ops.pme import ewald_beta_for
+
+    out = []
+    for tag, seed, box, rc, density in K2_GRIDS:
+        plan, direct, center, ghost = k2_grid(seed, box, rc, density, torch,
+                                              np, dev)
+        if tag == "C=128" and plan.capacity != 128 \
+                or tag == "nc=3" and min(plan.nc) != 3:
+            raise SystemExit(f"K2 grid {tag}: plan {plan}")
+        couple = torch.tensor(K2_GRID_COUPLE, device=dev)
+        beta = torch.tensor(ewald_beta_for(rc, 1e-5), device=dev)
+        xs = center[center[:, 7] > 0.5, :3]
+        outside = int(((xs < 0) | (xs >= torch.tensor(box, device=dev)))
+                      .any(1).sum())
+        errs, stats, _ = k2_check(f"direct_force {tag}", plan, direct,
+                                  center, ghost, couple, beta, torch)
+        ms = graph_ms(lambda: direct_force_cuda(plan, center, ghost, couple,
+                                                beta), 20)
+        say(f"[k2-grid] {tag}: {outside} sites outside [0, box) in their "
+            f"cells; kernel {ms:.4f} ms (device)")
+        out.append(dict(tag=tag, nc=plan.nc, capacity=plan.capacity,
+                        pairs=stats["pairs"], outside=outside, ms=ms,
+                        **errs))
+    return out
 
 
 def md_path(md, calls, torch, np):
@@ -1518,7 +1663,8 @@ def probe_bytes(nw, sl, S) -> int:
 
 def probe_phase(torch, np, dev="cuda"):
     """Phase 21: P. At the script's shapes and at PROBE_BIG, the kernel
-    against probe_plain and the script's loop (rel < 1e-6), timed; then
+    against probe_plain and the script's loop (rel < 1e-6), timed by
+    graph_ms with the eager time beside it; then
     the main path: the module's main() on the card, launches counted over
     exactly that call. Returns the JSON entry (script shapes; the large
     shape's numbers under *_big)."""
@@ -1538,7 +1684,8 @@ def probe_phase(torch, np, dev="cuda"):
         e_loop = P.rel_errors(o.cpu().numpy(), o2.cpu().numpy(),
                               *P.probe_loop(*arrs))
         err = float(max((o - op).abs().max(), (o2 - o2p).abs().max()))
-        ms = cuda_ms(lambda: P.probe_cuda(nw, sl, rows, pT), 50)
+        launch = lambda: P.probe_cuda(nw, sl, rows, pT)
+        ms, call_ms = graph_ms(launch, 50), cuda_ms(launch, 50)
         plain_ms = cuda_ms(lambda: P.probe_plain(nw, sl, rows, pT), 5)
         pairs = int(np.minimum(np.clip(arrs[0], 0, W), W).sum()) * 64 * 128
         nbytes = probe_bytes(*arrs[:2], pT.shape[1])
@@ -1547,13 +1694,14 @@ def probe_phase(torch, np, dev="cuda"):
         S = pT.shape[1]
         say(f"[probe] NC={NC} W={W} S={S}: rel err vs plain o={e_plain[0]:.2e}"
             f" o2={e_plain[1]:.2e}, vs loop o={e_loop[0]:.2e} "
-            f"o2={e_loop[1]:.2e} (limit 1e-6); kernel {ms:.4f} ms, plain "
+            f"o2={e_loop[1]:.2e} (limit 1e-6); kernel {ms:.4f} ms (device; "
+            f"{call_ms:.4f} ms per eager call), plain "
             f"{plain_ms:.3f} ms, bound {max(t_ops, t_bytes):.6f} ms "
             f"({pairs} pairs, {nbytes} bytes)")
         if max(*e_plain, *e_loop) >= 1e-6:
             raise SystemExit(f"probe NC={NC} S={S}: kernel and plain disagree")
         entry.update({f"max_abs_err{sfx}": err, f"ms{sfx}": ms,
-                      f"plain_ms{sfx}": plain_ms,
+                      f"call_ms{sfx}": call_ms, f"plain_ms{sfx}": plain_ms,
                       f"bound_ms{sfx}": max(t_ops, t_bytes),
                       f"bound_by{sfx}": ("operations" if t_ops >= t_bytes
                                          else "bytes"),
@@ -1945,7 +2093,10 @@ def main():
     entries += (sym_entries + sym_range_entries + sym_alch_entries
                 + cross_entries + [probe_entry])
 
-    # ---- 23. results ----
+    # ---- 23. K2 on a capacity-128 grid and an nc = 3 grid ----
+    k2_grids = k2_grid_phase(torch, np)
+
+    # ---- 24. results ----
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     if args.profile:
@@ -1963,7 +2114,7 @@ def main():
                            md=md_res, ti=ti, range=range_res,
                            shard=shard_res, dryrun=dry, sym=sym_res,
                            sym_range=sym_range_res, npt=npt_res,
-                           kernels=entries), fh, indent=1)
+                           k2_grids=k2_grids, kernels=entries), fh, indent=1)
     say(json.dumps({"kernels": [
         {k: e[k] for k in ("name", "route", "source", "replaces",
                            "launches", "max_abs_err", "ms", "plain_ms",

@@ -26,6 +26,14 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v"]
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# argtypes of each source's C entry point (each returns a cudaError_t)
+ENTRIES = {
+    "colpair_launch": [_I] * 10 + [_P] * 13,
+    "direct_force_launch": [_I] * 7 + [_F] + [_P] * 7,
+    "probe_launch": [_I] * 3 + [_P] * 7,
+}
+
 _lib = None
 build_log = ""       # nvcc's output of the last build (ptxas register report)
 build_seconds = {}   # wall seconds of each nvcc process of the last build
@@ -95,17 +103,57 @@ def build() -> str:
     return out
 
 
+def _bind(lib):
+    """`lib` with the argtypes of each entry of ENTRIES that it exports."""
+    for name, argtypes in ENTRIES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def load_library():
     """The ctypes library of csrc/*.cu, built if needed."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.colpair_launch.argtypes = [_I] * 10 + [_P] * 13
-        lib.colpair_launch.restype = ctypes.c_int
-        lib.direct_force_launch.argtypes = [_I] * 7 + [_F] + [_P] * 5
-        lib.direct_force_launch.restype = ctypes.c_int
-        lib.probe_launch.argtypes = [_I] * 3 + [_P] * 7
-        lib.probe_launch.restype = ctypes.c_int
-        _lib = lib
+        _lib = _bind(ctypes.CDLL(build()))
     return _lib
+
+
+def build_variants(src_name, variants, out_dir):
+    """{name: (ctypes library, ptxas report lines)}: csrc/`src_name` built
+    into `out_dir` once per entry of `variants`, {name: [(old, new), ...]},
+    with each text substitution applied (each `old` must match exactly
+    once, so a variant fails loudly when the kernel changes); one nvcc
+    process per variant, all started together. A variant's library stands
+    in for `load_library()`'s, so the wrappers launch it."""
+    with open(os.path.join(_HERE, "csrc", src_name)) as fh:
+        src = fh.read()
+    stem = os.path.splitext(src_name)[0]
+    nvcc = _nvcc()
+    procs = {}
+    for name, subs in variants.items():
+        text = src
+        for a, b in subs:
+            if text.count(a) != 1:
+                raise RuntimeError(f"variant {name}: {a!r} does not match "
+                                   f"exactly once in csrc/{src_name}")
+            text = text.replace(a, b)
+        cu = os.path.join(out_dir, f"{stem}_{name}.cu")
+        so = os.path.join(out_dir, f"{stem}_{name}.so")
+        with open(cu, "w") as fh:
+            fh.write(text)
+        procs[name] = (so, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", so, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
+        libs[name] = (_bind(ctypes.CDLL(so)),
+                      [line.strip() for line in log.splitlines()
+                       if "registers" in line or "spill" in line
+                       or "Compiling entry" in line])
+    return libs

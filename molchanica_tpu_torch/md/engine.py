@@ -163,7 +163,11 @@ class MdSim:
         self._plan = plan
         self._rebuild = make_rebuild_fn(plan, top.atom_mask)
         self._direct = direct = DirectForce(top, plan)
-        self._beta = beta = ewald_beta_for(cfg.coulomb_cutoff, cfg.ewald_rtol)
+        # on the device once per plan: K2's launch then copies nothing from
+        # the host (CUDA-graph capture)
+        self._beta = beta = torch.tensor(
+            ewald_beta_for(cfg.coulomb_cutoff, cfg.ewald_rtol),
+            dtype=torch.float32, device=self.device)
         rest_fg = make_force_fn(make_energy_fn(top, cfg, "pme_rest",
                                                pme_recip_fn=self._recip))
         vs = top.vsite_idx

@@ -14,9 +14,10 @@ note k, not k + h: ghost z-cells k..k+2 are interior k-1..k+1.
 `DirectForce` is the kernel behind MdSim's `direct(x, box, couple, beta,
 slot_atom, inv_slot) -> (F, e_lj, e_c, overflow)`: the hand-written CUDA
 kernel in csrc/direct_force.cu for CUDA tensors, `direct_force_plain`
-(the same function in plain torch) for CPU tensors. Each pair is
-evaluated from both of its cells; forces are center-side only and the
-energies half-summed per cell. Excluded and 1-4 pairs are evaluated too
+(the same function in plain torch) for CPU tensors;
+`direct_force_work` is the plain model of that kernel's schedule. Each
+pair is evaluated from both of its cells; forces are center-side only and
+the energies half-summed per cell. Excluded and 1-4 pairs are evaluated too
 and subtracted by `pairlist_kernel_formula_energy`, with the same
 arithmetic, in plain torch.
 """
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from ..constants import COULOMB_CONST
+from .colpair import _sorted_keys
 
 SOFTCORE_ALPHA = 0.5
 
@@ -45,6 +47,12 @@ _TWO_OVER_SQRT_PI = 2.0 / math.sqrt(math.pi)
 
 # pair-tile elements per chunk of direct_force_plain
 CHUNK_ELEMS = 1 << 22
+
+# the schedule of csrc/direct_force.cu (direct_force_work models it)
+PART_I = 32           # at most this many center sites per block
+WORK_WARPS = 8        # warps per block
+QCAP = 512            # a warp's queue of (i, j) pairs
+BOX_MARGIN = 1.0001   # relative margin on rc^2 of the staging prefilter
 
 
 def erfc_approx(x):
@@ -253,13 +261,17 @@ def direct_force_plain(center, ghost, starts, couple, beta, rc2,
     each cell's half-summed LJ + Coulomb energy; "e_abs" [n_cells], its
     half sum of |e_lj| + |e_c|; "e_abs_lj" and "e_abs_c", the half sums of
     |e_lj| and of |e_c| over all pairs (the float32 scale of the two energy
-    totals, which carry excluded pairs that the caller subtracts again)."""
+    totals, which carry excluded pairs that the caller subtracts again).
+    With the key "keys" in `stats` it also receives "keys", the sorted
+    int64 keys center slot * G + ghost slot of the evaluated pairs."""
     S = center.shape[0]
     n_cells, n_slab = starts.shape
     cap = S // n_cells
     L = 3 * cap
     dev = center.device
     out = torch.zeros((S, 4), dtype=center.dtype, device=dev)
+    want_keys = stats is not None and "keys" in stats
+    key_parts = []
     if stats is not None:
         stats.update(pairs=0, f_abs=torch.zeros_like(out[:, 0]),
                      e_cell=torch.zeros_like(out[:n_cells, 0]),
@@ -287,6 +299,9 @@ def direct_force_plain(center, ghost, starts, couple, beta, rc2,
             coeff, elj, ec, d, mag = _pair_terms(
                 cv.unbind(1), sv.unbind(0), couple, beta, stats is not None)
             slot = ci * cap + ii
+            if want_keys:
+                key_parts.append((slot + c0 * cap) * ghost.shape[1]
+                                 + starts[c0 + ci, s] + li)
             acc.index_add_(0, slot, torch.stack([coeff * dd for dd in d], 1))
             e[0].index_add_(0, ci, elj.double())
             e[1].index_add_(0, ci, ec.double())
@@ -305,6 +320,109 @@ def direct_force_plain(center, ghost, starts, couple, beta, rc2,
         e_rows[:, 1] = 0.5 * e[1]
         if stats is not None:
             stats["e_cell"][c0:c1] = 0.5 * (e[0] + e[1])
+    if want_keys:
+        stats["keys"] = _sorted_keys(key_parts, dev)
+    return out
+
+
+def direct_force_work(center, ghost, starts, rc2, n_sm=132, keys=False):
+    """Plain model of csrc/direct_force.cu's schedule on the kernel's inputs
+    (those of `direct_force_plain`). The grid is n_cells x C / PART_I
+    blocks of WORK_WARPS warps. A cell's real sites, in slot order, are cut
+    into ceil(n_c / PART_I) even ranges, one per active block; the others
+    exit. An active block stages, in scan order (the 9 slabs of 3 C ghost
+    slots), the real sites of the 27 neighbour cells whose squared distance
+    to the bounding box of its own sites is below rc^2 BOX_MARGIN (float32,
+    without FMA, as the kernel); cuts them into 32-site chunks, chunk k to
+    warp k mod WORK_WARPS; and per chunk queues the pairs with r^2 < rc^2
+    and r^2 > 1e-9 i by i, running the math on 32-lane batches whenever
+    the queue could not take another i (more than QCAP - 32 pairs) and
+    after the last i. Blocks are dealt to `n_sm` SMs round-robin in launch
+    order (blockIdx.x fastest) for the per-SM load.
+
+    Returns a dict of counts: parts (per cell), blocks, active_blocks,
+    warps_per_sm (active warps), sites (center sites over the parts),
+    max_part_sites, min_part_sites, scanned (neighbourhood slots read), real
+    (real sites among them), staged (kept by the prefilter), tested (i, j
+    tests), chunks, pairs, batches, lane_use (pairs per batch lane),
+    max_warp_chunks, sm_batches_max and sm_batches_mean (math batches per
+    SM); with `keys`, "keys", the sorted pair keys as
+    direct_force_plain's stats give them."""
+    S = center.shape[0]
+    n_cells = starts.shape[0]
+    cap = S // n_cells
+    G = ghost.shape[1]
+    dev = center.device
+    parts = cap // PART_I
+    rc2_box = (torch.tensor(rc2, dtype=torch.float32)
+               * torch.tensor(BOX_MARGIN, dtype=torch.float32)).item()
+    scan = (starts[:, :, None]
+            + torch.arange(3 * cap, device=dev)).reshape(n_cells, -1)
+    tot = dict(sites=0, scanned=0, real=0, staged=0, tested=0, chunks=0,
+               pairs=0, batches=0, max_warp_chunks=0, max_part_sites=0,
+               min_part_sites=PART_I)
+    block_batches, key_parts = [], []
+    for p in range(n_cells):
+        rows = center[p * cap:(p + 1) * cap]
+        real = torch.nonzero(rows[:, 7] > 0.5).squeeze(1)
+        n_c = real.numel()
+        n_part = -(-n_c // PART_I)
+        g_real = scan[p][ghost[7, scan[p]] > 0.5]
+        nb = ghost[:, g_real]                                   # [8, n]
+        for q in range(n_part):
+            own = real[q * n_c // n_part:(q + 1) * n_c // n_part]
+            ci = rows[own]                                      # [n_i, 8]
+            lo, hi = ci[:, :3].amin(0)[:, None], ci[:, :3].amax(0)[:, None]
+            d = torch.clamp_min(torch.maximum(lo - nb[:3], nb[:3] - hi), 0.0)
+            keep = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2] < rc2_box
+            gj, sj = g_real[keep], nb[:, keep]
+            n_i, n_j = own.numel(), gj.numel()
+            dx = ci[:, 0:1] - sj[0][None, :]                    # [n_i, n_j]
+            dy = ci[:, 1:2] - sj[1][None, :]
+            dz = ci[:, 2:3] - sj[2][None, :]
+            r2 = dx * dx + dy * dy + dz * dz
+            hit = (r2 < rc2) & (r2 > 1e-9)
+            n_ch = -(-n_j // 32)
+            per = torch.zeros((n_i, n_ch * 32), dtype=torch.int64,
+                              device=dev)
+            per[:, :n_j] = hit
+            per = per.reshape(n_i, n_ch, 32).sum(2)             # [n_i, n_ch]
+            cnt = torch.zeros(n_ch, dtype=torch.int64, device=dev)
+            batches = 0
+            for ii in range(n_i):
+                cnt = cnt + per[ii]
+                flush = (cnt > QCAP - 32) | (ii == n_i - 1)
+                batches += int(torch.where(flush, (cnt + 31) // 32,
+                                           torch.zeros_like(cnt)).sum())
+                cnt = torch.where(flush, torch.zeros_like(cnt), cnt)
+            tot["sites"] += n_i
+            tot["max_part_sites"] = max(tot["max_part_sites"], n_i)
+            tot["min_part_sites"] = min(tot["min_part_sites"], n_i)
+            tot["scanned"] += scan.shape[1]
+            tot["real"] += g_real.numel()
+            tot["staged"] += n_j
+            tot["tested"] += n_i * n_j
+            tot["chunks"] += n_ch
+            tot["pairs"] += int(hit.sum())
+            tot["batches"] += batches
+            tot["max_warp_chunks"] = max(tot["max_warp_chunks"],
+                                         -(-n_ch // WORK_WARPS))
+            block_batches.append((q * n_cells + p, batches))
+            if keys:
+                ii, jj = torch.nonzero(hit, as_tuple=True)
+                key_parts.append((p * cap + own[ii]) * G + gj[jj])
+    sm = torch.zeros(n_sm, dtype=torch.int64)
+    for k, (_, b) in enumerate(sorted(block_batches)):
+        sm[k % n_sm] += b
+    active = len(block_batches)
+    out = dict(parts=parts, blocks=n_cells * parts, active_blocks=active,
+               warps_per_sm=active * WORK_WARPS / n_sm, **tot,
+               lane_use=(tot["pairs"] / (32 * tot["batches"])
+                         if tot["batches"] else 0.0),
+               sm_batches_max=int(sm.max()),
+               sm_batches_mean=float(sm.float().mean()))
+    if keys:
+        out["keys"] = _sorted_keys(key_parts, dev)
     return out
 
 
@@ -410,9 +528,14 @@ class DirectForce:
         return f_atoms, e[:, 0].sum(), e[:, 1].sum(), zero
 
 
-def direct_force_cuda(plan: WindowPlan, center, ghost, couple, beta):
+def direct_force_cuda(plan: WindowPlan, center, ghost, couple, beta,
+                      counts=None):
     """Launch csrc/direct_force.cu on the current stream: out [n_cells C,
-    4], laid out as direct_force_plain's. Counts no launch; `DirectForce`
+    4], laid out as direct_force_plain's. `counts`, a one-element int64
+    tensor on the card, gets the kernel's count of the pairs that passed
+    its cutoff test added. With couple and beta device scalars the launch
+    copies nothing from the host, so it can be captured in a CUDA graph; a
+    Python float is copied at every call. Counts no launch; `DirectForce`
     does."""
     import ctypes
 
@@ -427,25 +550,32 @@ def direct_force_cuda(plan: WindowPlan, center, ghost, couple, beta):
         raise ValueError(f"direct_force: center {tuple(center.shape)} / "
                          f"ghost {tuple(ghost.shape)}: want [{S}, 8] / "
                          f"[8, {G}]")
-    if cap % 32 or cap > 256 or plan.halo != 1:
-        raise ValueError("direct_force: capacity must be a multiple of 32 "
-                         "up to 256, halo 1")
-    params = torch.stack([torch.as_tensor(couple, dtype=torch.float32,
-                                          device=dev).reshape(()),
-                          torch.tensor(float(beta), device=dev)])
+    if cap % PART_I or cap > 256 or plan.halo != 1 or G >= 2 ** 31:
+        raise ValueError(f"direct_force: capacity must be a multiple of "
+                         f"{PART_I} up to 256, halo 1, fewer than 2^31 "
+                         f"ghost slots")
+    params = torch.stack([torch.as_tensor(v, dtype=torch.float32,
+                                          device=dev).reshape(())
+                          for v in (couple, beta)])
     for name, t in (("center", center), ("ghost", ghost),
                     ("params", params)):
         if t.device != dev or t.dtype != torch.float32 \
                 or not t.is_contiguous():
             raise ValueError(f"direct_force: {name} must be a contiguous "
                              f"float32 tensor on {dev}")
+    if counts is not None and (counts.device != dev or counts.numel() != 1
+                               or counts.dtype != torch.int64):
+        raise ValueError(f"direct_force: counts must be one int64 on {dev}")
     lib = load_library()
     out = torch.empty((S, 4), dtype=torch.float32, device=dev)
+    scratch = torch.empty((plan.n_cells * (cap // PART_I) * 2,),
+                          dtype=torch.float64, device=dev)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     err = lib.direct_force_launch(
         plan.n_cells, cap, plan.nc[1], plan.nc[2], gy, gz, G,
         ctypes.c_float(float(plan.cutoff) ** 2), ptr(center), ptr(ghost),
-        ptr(params), ptr(out),
+        ptr(params), ptr(out), ptr(scratch),
+        ctypes.c_void_p(None) if counts is None else ptr(counts),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"direct_force kernel launch failed: CUDA error "

@@ -11,17 +11,19 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..device import resolve_device
+
 
 class Comm:
     """Ring exchanges and collectives of `group` (None: the default group)
-    for tensors on `device`."""
+    for tensors on `device` (None: the CUDA card; raises without one)."""
 
-    def __init__(self, group=None, device="cpu"):
+    def __init__(self, group=None, device=None):
+        self.device = resolve_device(device)
         self.group = group
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
         self.backend = str(dist.get_backend(group))
-        self.device = torch.device(device)
         self.staged = self.backend != "nccl"
 
     def _wire(self, t):

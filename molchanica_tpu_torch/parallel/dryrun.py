@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..constants import COULOMB_CONST
+from ..device import resolve_device
 from ..ops.colpair import (ColpairDirect, make_sort_fn, make_window_fn,
                            plan_columns)
 from ..ops.pme import ewald_beta_for
@@ -23,12 +24,13 @@ from .spatial_colpair import (block, halo_depth_for,
 
 
 def sorted_colpair_state(x, q, sig, eps, box, rc, n_dev, skin=0.5,
-                         device="cpu"):
+                         device=None):
     """(plan, rows [S, 8], wl, nw, box) of an atomic system (every atom
     its own exclusion group), per-site sorted and with triangular range
     tables, S padded to split into n_dev blocks. q in electron units,
     sig and eps the LJ sigma and epsilon. Built on the CPU, returned on
-    `device`."""
+    `device` (None: the CUDA card; raises without one)."""
+    dev = resolve_device(device)
     n = x.shape[0]
     beta = ewald_beta_for(rc, 1e-5)
     plan = pad_plan_for_mesh(plan_columns(box, rc, beta, n, n, skin=skin),
@@ -48,7 +50,6 @@ def sorted_colpair_state(x, q, sig, eps, box, rc, n_dev, skin=0.5,
         rows[:, :3], keys, boxt, rows[:, 7])
     if int(ovf) or int(wovf):
         raise RuntimeError("sorted_colpair_state: table overflow")
-    dev = torch.device(device)
     return plan, rows.to(dev), wl.to(dev), nw.to(dev), boxt.to(dev)
 
 

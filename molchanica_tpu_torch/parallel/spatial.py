@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..constants import ACCEL_FACTOR, COULOMB_CONST, KB
+from ..device import resolve_device
 from .comm import Comm
 
 
@@ -90,7 +91,7 @@ def _pair_energy_force(xi, mi, xj, mj, qi, qj, si, sj, ei, ej, box, rc,
 
 
 def make_spatial_force_fn(group, box, rc: float, halo_depth: int = 1,
-                          beta=None, pme_grid=None, device="cpu"):
+                          beta=None, pme_grid=None, device=None):
     """force(x, m, q, s, e) -> (E total, F [cap, 3]) on this rank of
     `group`, for its slab (x [cap, 3], mask, q, sigma/2, 2 sqrt(eps)):
     forces from its own slab plus halo_depth slabs on each side (the slab
@@ -99,7 +100,8 @@ def make_spatial_force_fn(group, box, rc: float, halo_depth: int = 1,
     and pme_grid the electrostatics are smooth-PME Ewald: erfc(beta r)
     direct within the halo, the reciprocal sum on a replicated grid, q in
     electron units, the Ewald self energy included. No intramolecular
-    exclusions: atomic fluids."""
+    exclusions: atomic fluids. `device` None means the CUDA card, which
+    must be there."""
     comm = Comm(group, device)
     d, n = comm.rank, comm.size
     boxt = torch.as_tensor(np.asarray(box), dtype=torch.float32,
@@ -159,11 +161,12 @@ def spatial_reference_force(x, mask, q, sig, eps, box, rc):
 
 def make_spatial_step_fn(group, box, rc: float, dt: float, gamma: float,
                          temp_target: float, beta=None, pme_grid=None,
-                         device="cpu"):
+                         device=None):
     """Langevin-middle MD chunk of one simulation decomposed over `group`,
     halo forces exchanged every step: chunk(x, v, m, q, s, e, mass,
     generator, k) -> (x, v, ke total) for this rank's slab. The noise
-    comes from the rank's own generator."""
+    comes from the rank's own generator. `device` None means the CUDA
+    card."""
     comm = Comm(group, device)
     force = make_spatial_force_fn(group, box, rc, 1, beta, pme_grid, device)
     c1 = math.exp(-gamma * dt)
@@ -194,19 +197,20 @@ def make_spatial_step_fn(group, box, rc: float, dt: float, gamma: float,
 def spatial_md_run(x, v, masses, q, sig, eps, box, group, rc: float,
                    dt: float, n_steps: int, rebuild_every: int = 10,
                    gamma: float = 2.0, temp_target: float = 300.0,
-                   seed: int = 0, beta=None, pme_grid=None, device="cpu"):
+                   seed: int = 0, beta=None, pme_grid=None, device=None):
     """Run one simulation decomposed over `group`, called on every rank
     with the same arguments. The atoms are re-partitioned into x-slabs
     every `rebuild_every` steps (replicated on every rank; atoms drift
     between slabs only as far as the slab width exceeds rc), each rank
     steps its slab, and the slabs are gathered back. The noise of rank r
     comes from a generator seeded from (seed, r). Returns (x, v, ke
-    history) in the original atom order, on every rank."""
+    history) in the original atom order, on every rank, on `device`
+    (None: the CUDA card)."""
     import torch.distributed as dist
 
+    dev = resolve_device(device)
     n_dev = dist.get_world_size(group)
     rank = dist.get_rank(group)
-    dev = torch.device(device)
     step = make_spatial_step_fn(group, box, rc, dt, gamma, temp_target,
                                 beta=beta, pme_grid=pme_grid, device=dev)
     comm = Comm(group, dev)

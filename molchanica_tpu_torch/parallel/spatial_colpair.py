@@ -63,11 +63,11 @@ class ShardedColpair:
     -> (f [B, 3], e_lj, e_c), this rank's block of the rows, of the range
     table (global slots) and of the forces; the energies are the totals.
     S and NC must split into the group's size (pad_plan_for_mesh).
-    Tensors live on `device`."""
+    Tensors live on `device` (None: the CUDA card; raises without one)."""
 
     def __init__(self, group, plan: ColPlan, halo: int,
                  has_alch: bool = False, want_energy: bool = True,
-                 device="cpu"):
+                 device=None):
         self.comm = comm = Comm(group, device)
         n_dev, S, NC = comm.size, plan.n_sorted, plan.n_clusters
         if S % n_dev or NC % n_dev:
@@ -136,7 +136,7 @@ class ShardedColpair:
 
 def make_sharded_colpair_direct(group, plan: ColPlan, halo: int,
                                 has_alch: bool = False,
-                                want_energy: bool = True, device="cpu"):
+                                want_energy: bool = True, device=None):
     """The sharded direct sum on this rank (see ShardedColpair)."""
     return ShardedColpair(group, plan, halo, has_alch=has_alch,
                           want_energy=want_energy, device=device)

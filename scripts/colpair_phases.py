@@ -28,10 +28,8 @@ wrong by design; only `full` is checked (against the plain version).
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -44,45 +42,6 @@ VARIANTS = {
     "regs128": [("__global__ void __launch_bounds__(THREADS)\n",
                  "__global__ void __launch_bounds__(THREADS, 4)\n")],
 }
-
-
-def build_variants(out_dir):
-    """{name: (ctypes library, ptxas report lines)}, nvcc run for every
-    variant at once."""
-    from molchanica_tpu_torch import cuda_build
-
-    with open(os.path.join(ROOT, "molchanica_tpu_torch", "csrc",
-                           "colpair.cu")) as fh:
-        src = fh.read()
-    nvcc = cuda_build._nvcc()
-    procs = {}
-    for name, subs in VARIANTS.items():
-        text = src
-        for a, b in subs:
-            if text.count(a) != 1:
-                raise SystemExit(f"variant {name}: {a!r} does not match "
-                                 "exactly once in csrc/colpair.cu")
-            text = text.replace(a, b)
-        cu = os.path.join(out_dir, f"colpair_{name}.cu")
-        so = os.path.join(out_dir, f"colpair_{name}.so")
-        with open(cu, "w") as fh:
-            fh.write(text)
-        procs[name] = (so, subprocess.Popen(
-            [nvcc, *cuda_build.NVCC_FLAGS, "-shared", "-o", so, cu],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for variant {name}:\n{log}")
-        lib = ctypes.CDLL(so)
-        lib.colpair_launch.argtypes = ([ctypes.c_int] * 10
-                                       + [ctypes.c_void_p] * 13)
-        lib.colpair_launch.restype = ctypes.c_int
-        libs[name] = (lib, [line.strip() for line in log.splitlines()
-                            if "registers" in line or "spill" in line
-                            or "Compiling entry" in line])
-    return libs
 
 
 def instance_table(report):
@@ -156,7 +115,7 @@ def main():
     print(f"[card] {card}", flush=True)
     res = dict(card=card, ms={}, ptxas={})
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_variants(tmp)
+        libs = cuda_build.build_variants("colpair.cu", VARIANTS, tmp)
         for name, (_, report) in libs.items():
             res["ptxas"][name] = report
             regs = sorted({int(r.split("Used ")[1].split()[0])

@@ -237,7 +237,7 @@ def test_shard_halo_below_the_clusters(rank):
     x = rng.uniform(0, 1, (n, 3)) * box
     plan, rows, wl, nw, boxt = sorted_colpair_state(
         x, rng.normal(0, 0.4, n), rng.uniform(2.8, 3.4, n),
-        rng.uniform(0.05, 0.2, n), box, RC, n_dev)
+        rng.uniform(0.05, 0.2, n), box, RC, n_dev, device="cpu")
     h = halo_depth_for(plan, n_dev, wl, nw)
     assert h == 1
     S, B = plan.n_sorted, plan.n_sorted // n_dev

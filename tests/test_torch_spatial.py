@@ -14,7 +14,8 @@ float32); the sharded colpair against JAX's and against the port's
 single-device kernel, forces 5e-6 of max|F| and energies rel 1e-5 (the
 JAX test's bounds); spatial_md_run at gamma 0 (the noise is multiplied by
 zero), positions within 1e-3 A and kinetic energies rel 1e-4 after two
-10-step chunks.
+10-step chunks. Called without a device, every parallel entry point takes
+the card and, without one, raises.
 """
 import jax
 import jax.numpy as jnp
@@ -30,6 +31,7 @@ from molchanica_tpu_torch.ops.colpair import ColpairDirect
 from molchanica_tpu_torch.ops.pme2 import make_pme2_recip_fn
 from molchanica_tpu_torch.parallel import spatial as TS
 from molchanica_tpu_torch.parallel import spatial_colpair as TC
+from molchanica_tpu_torch.parallel.comm import Comm
 from molchanica_tpu_torch.parallel.dryrun import (dryrun_multidevice,
                                                   sorted_colpair_state)
 from molchanica_tpu_torch.parallel.launch import run_ranks
@@ -195,7 +197,7 @@ def _colpair_case(box, n, want_energy, halo=None):
     x = rng.uniform(0, 1, (n, 3)) * box
     plan, rows, wl, nw, boxt = sorted_colpair_state(
         x, rng.normal(0, 0.4, n), rng.uniform(2.6, 3.4, n),
-        rng.uniform(0.05, 0.25, n), box, 6.0, N_DEV)
+        rng.uniform(0.05, 0.25, n), box, 6.0, N_DEV, device="cpu")
     h = TC.halo_depth_for(plan, N_DEV, wl, nw)
     jplan = _jplan(plan)
     assert h == JC.halo_depth_for(jplan, N_DEV, np.asarray(wl),
@@ -263,6 +265,34 @@ def test_a_failing_rank_fails_the_run():
         run_ranks(TC.pad_plan_for_mesh, 2, "gloo", "cpu")
 
 
+_BOX = np.array([20.0, 20.0, 20.0])
+_X = np.zeros((4, 3))
+_DEFAULT_DEVICE_CALLS = {
+    "make_spatial_force_fn": lambda: TS.make_spatial_force_fn(None, _BOX, 6.0),
+    "make_spatial_step_fn": lambda: TS.make_spatial_step_fn(
+        None, _BOX, 6.0, 0.002, 1.0, 300.0),
+    "spatial_md_run": lambda: TS.spatial_md_run(
+        _X, _X, np.ones(4), np.zeros(4), np.ones(4), np.ones(4), _BOX, None,
+        6.0, 0.002, 1),
+    "ShardedColpair": lambda: TC.ShardedColpair(None, None, 1),
+    "make_sharded_colpair_direct": lambda: TC.make_sharded_colpair_direct(
+        None, None, 1),
+    "sorted_colpair_state": lambda: sorted_colpair_state(
+        _X, np.zeros(4), np.ones(4), np.ones(4), _BOX, 6.0, 4),
+    "Comm": lambda: Comm(None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_DEFAULT_DEVICE_CALLS))
+def test_entry_point_defaults_to_the_card(name, monkeypatch):
+    """Called without a device, each parallel entry point takes the CUDA
+    card, and without one raises before it touches a process group (the
+    card is hidden, so the check runs on any host)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _DEFAULT_DEVICE_CALLS[name]()
+
+
 @pytest.mark.slow
 def test_sharded_colpair_25k():
     """The JAX package's 25k case on the port: config 3's 25,088 sites at
@@ -283,7 +313,8 @@ def test_sharded_colpair_25k():
         x, (top.charges * top.atom_mask).numpy().astype(np.float64),
         top.lj_sigma.numpy().astype(np.float64),
         top.lj_eps.numpy().astype(np.float64),
-        np.asarray(asys.box_extent, np.float64), 9.0, n_dev)
+        np.asarray(asys.box_extent, np.float64), 9.0, n_dev,
+        device="cpu")
     halo = TC.halo_depth_for(plan, n_dev, wl, nw)
     f_t, _, ec_t = TC.run_sharded_colpair(n_dev, "gloo", "cpu", plan, halo,
                                           rows, wl, nw, boxt)

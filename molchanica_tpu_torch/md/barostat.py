@@ -1,5 +1,5 @@
-"""Berendsen-style tau-coupled barostat (port of the finite-difference
-path of molchanica_tpu.md.barostat, the one FastSim runs).
+"""Berendsen-style tau-coupled barostat (port of molchanica_tpu.md.barostat;
+FastSim runs its finite-difference pressure, MdSim the autograd one).
 
 Instantaneous molecular pressure from the isotropic scaling derivative:
 
@@ -9,7 +9,8 @@ Each molecule's centre of mass moves with the box while its internal
 geometry stays fixed, so constrained molecules (SETTLE waters, SHAKE
 H-clusters) need no constraint virial, and the kinetic term is the
 molecular translational one. `scaling_pressure_bar` takes dE/ds by
-autograd through a differentiable energy; FastSim takes
+autograd through a differentiable energy (MdSim: its direct-space
+backend's energy, PME with its box gradient, bonded); FastSim takes
 `scaling_pressure_bar_fd`, a central difference, because the colpair
 kernels have no gradient with respect to the box. The weak-coupling update
 is applied once per rebuild period.
@@ -75,6 +76,16 @@ def scaling_pressure_bar_fd(e_scalar_fn, x, box, v, masses, dof_mask,
     em = e_scalar_fn(x - h * ca, box * (1.0 - h), couple)
     de_ds = (ep - em) / (2.0 * h)
     p = (2.0 * ke - de_ds) / (3.0 * vol)
+    return p * PRESSURE_KCAL_PER_A3_TO_BAR
+
+
+def instantaneous_pressure_bar(x, box, v, masses, dof_mask, forces):
+    """The atom-wise estimate (2 KE + sum r . F) / 3V in bar: wrong under
+    PBC (pairs across the boundary and the reciprocal virial are missed);
+    a diagnostic only, never used for coupling."""
+    vol = torch.prod(box)
+    ke = kinetic_energy(v, masses, dof_mask)
+    p = (2.0 * ke + torch.sum(x * forces)) / (3.0 * vol)
     return p * PRESSURE_KCAL_PER_A3_TO_BAR
 
 

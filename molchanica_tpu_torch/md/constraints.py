@@ -126,7 +126,7 @@ def make_constraint_fns(top, cfg, box):
         n_con = int(mask_np.sum())
 
     dev = top.masses.device
-    f32 = dict(dtype=torch.float32, device=dev)
+    f32 = dict(dtype=top.masses.dtype, device=dev)
     atom_idx = torch.as_tensor(np.where(atom_idx_np < 0, 0, atom_idx_np),
                                device=dev)
     flat_idx = atom_idx.reshape(-1)
@@ -153,7 +153,7 @@ def make_constraint_fns(top, cfg, box):
 
     # coupling c_kl: how lambda_l (along r_l0) moves r_k
     def dm(s1, s2, m_of):
-        return (s1[:, :, None] == s2[:, None, :]).to(torch.float32) \
+        return (s1[:, :, None] == s2[:, None, :]).to(m_of.dtype) \
             * m_of[:, :, None]
 
     m_ik = torch.gather(inv_m, 1, ik)

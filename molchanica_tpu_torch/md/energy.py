@@ -1,9 +1,11 @@
 """Potential-energy assembly with per-term breakdown (port of
-molchanica_tpu.md.energy for MdSim's cell-grid path).
+molchanica_tpu.md.energy), with the MdOverrides ablation switches.
 
-Only the "pme_rest" method is ported: everything except the direct-space
-window sums, which come from the cell-grid kernel (ops/direct_force.py).
-Forces are torch.autograd gradients of these energies.
+Methods: "allpairs" (dense, vacuum), "allpairs_cutoff" (dense with cutoff
+and minimum image, small boxes), "cells_pme" (cell-window direct space of
+ops/cells.py + PME) and "pme_rest" (everything but the direct-space sums,
+which MdSim's direct-force backends add). Forces and dH/dlambda are
+torch.autograd gradients of these energies.
 """
 from __future__ import annotations
 
@@ -45,23 +47,28 @@ def _ewald_self_energy(top, couple, beta):
         q_eff * q_eff)
 
 
-def make_energy_fn(top, cfg, method: str = "pme_rest", pme_recip_fn=None):
-    """energy(x, box, couple) -> (E_total, terms) for method "pme_rest":
-    reciprocal + self + erf exclusion correction, minus the kernel-formula
-    contribution of excluded and 1-4 pairs (the cell-grid kernel adds every
-    close pair), plus bonded and the scaled 1-4 terms."""
-    if method != "pme_rest":
-        raise NotImplementedError(
-            f"energy method {method!r} is not ported (ROADMAP Queue 1 item "
-            "7: the allpairs, allpairs_cutoff and cells_pme window "
-            "backends)")
+def make_energy_fn(top, cfg, method: str = "allpairs", pme_recip_fn=None,
+                   direct_space_fn=None):
+    """energy(x, box, couple) -> (E_total, terms).
+
+    "cells_pme" takes direct_space_fn(x, box, couple, beta) -> (e_lj, e_c,
+    overflow) (ops/cells.py::make_cell_direct_space_fn) and pme_recip_fn;
+    "pme_rest" is reciprocal + self + erf exclusion correction, minus the
+    kernel-formula contribution of excluded and 1-4 pairs (the direct-force
+    backends add every close pair). With coupled atoms, the PME methods add
+    the couple-intramol=no compensation of the coupled molecule's own
+    pairs. The 1-4 pairs add full Coulomb at 1/scee and LJ at 1/scnb."""
+    if method not in ("allpairs", "allpairs_cutoff", "cells_pme",
+                      "pme_rest"):
+        raise ValueError(method)
     ov = cfg.overrides
     scee = 1.0 / torch.clamp_min(top.pair14_scee, 1e-6)
     scnb = 1.0 / torch.clamp_min(top.pair14_scnb, 1e-6)
-    if nb.intramol_pairs_np(top)[1].sum() > 0:
-        raise NotImplementedError(
-            "coupled atoms need intramol_recip_compensation (ROADMAP Queue "
-            "1 item 4: dhdl / alchemical)")
+    im_idx_np, im_mask_np = nb.intramol_pairs_np(top)
+    has_alch = bool(im_mask_np.sum() > 0)
+    dev = top.masses.device
+    im_idx = torch.as_tensor(im_idx_np, device=dev).to(torch.int64)
+    im_mask = torch.as_tensor(im_mask_np, device=dev).to(top.masses.dtype)
     ewald_beta = ewald_beta_for(cfg.coulomb_cutoff, cfg.ewald_rtol)
     rc2 = max(cfg.lj_cutoff, cfg.coulomb_cutoff) ** 2
 
@@ -71,27 +78,47 @@ def make_energy_fn(top, cfg, method: str = "pme_rest", pme_recip_fn=None):
         zero = torch.zeros((), dtype=x.dtype, device=x.device)
         e_recip = zero
         e_self = zero
-        el_x, ec_x = pairlist_kernel_formula_energy(
-            x, box, top, top.excl_idx, top.excl_mask, couple, ewald_beta,
-            rc2)
-        el_4, ec_4 = pairlist_kernel_formula_energy(
-            x, box, top, top.pair14_idx, top.pair14_mask, couple,
-            ewald_beta, rc2)
-        e_lj = -(el_x + el_4)
-        e_c = -(ec_x + ec_4)
-        if ov.lj_disabled:
-            e_lj = torch.zeros_like(e_lj)
-        if ov.coulomb_disabled:
-            e_c = torch.zeros_like(e_c)
-        if not (ov.long_range_recip_disabled or ov.coulomb_disabled):
-            e_recip = pme_recip_fn(x, box, couple)
-            e_self = _ewald_self_energy(top, couple, ewald_beta)
-            e_c = e_c + nb.ewald_exclusion_correction(x, box, top, couple,
+        overflow = torch.zeros((), dtype=torch.int64, device=x.device)
+        if method == "allpairs":
+            e_lj, e_c = nb.allpairs_energy(
+                x, None, top, couple, lj_enabled=not ov.lj_disabled,
+                coulomb_enabled=not ov.coulomb_disabled)
+        elif method == "allpairs_cutoff":
+            e_lj, e_c = nb.allpairs_energy(
+                x, box, top, couple, cutoff=cfg.lj_cutoff,
+                lj_switch_start=cfg.lj_switch_start,
+                lj_enabled=not ov.lj_disabled,
+                coulomb_enabled=not ov.coulomb_disabled)
+        else:
+            if method == "cells_pme":
+                e_lj, e_c, overflow = direct_space_fn(x, box, couple,
                                                       ewald_beta)
+            else:
+                el_x, ec_x = pairlist_kernel_formula_energy(
+                    x, box, top, top.excl_idx, top.excl_mask, couple,
+                    ewald_beta, rc2)
+                el_4, ec_4 = pairlist_kernel_formula_energy(
+                    x, box, top, top.pair14_idx, top.pair14_mask, couple,
+                    ewald_beta, rc2)
+                e_lj = -(el_x + el_4)
+                e_c = -(ec_x + ec_4)
+            if ov.lj_disabled:
+                e_lj = torch.zeros_like(e_lj)
+            if ov.coulomb_disabled:
+                e_c = torch.zeros_like(e_c)
+            if not (ov.long_range_recip_disabled or ov.coulomb_disabled):
+                e_recip = pme_recip_fn(x, box, couple)
+                e_self = _ewald_self_energy(top, couple, ewald_beta)
+                e_c = e_c + nb.ewald_exclusion_correction(x, box, top, couple,
+                                                          ewald_beta)
+                if has_alch:
+                    e_c = e_c + nb.intramol_recip_compensation(
+                        x, box, top, im_idx, im_mask, couple, ewald_beta)
         # 1-4 scaled pairs: full (undamped) Coulomb at 1/scee, LJ at 1/scnb
         e14_lj, e14_c = nb.pairlist_energy(
-            x, box, top, top.pair14_idx, top.pair14_mask,
-            coulomb_scale=scee, lj_scale=scnb, couple_strength=couple)
+            x, box if method != "allpairs" else None, top, top.pair14_idx,
+            top.pair14_mask, coulomb_scale=scee, lj_scale=scnb,
+            couple_strength=couple)
         if ov.lj_disabled:
             e14_lj = torch.zeros_like(e14_lj)
         if ov.coulomb_disabled:
@@ -104,8 +131,7 @@ def make_energy_fn(top, cfg, method: str = "pme_rest", pme_recip_fn=None):
                      energy_potential=total,
                      energy_potential_bonded=e_bonded,
                      energy_potential_nonbonded=e_nb,
-                     cell_overflow=torch.zeros((), dtype=torch.int32,
-                                               device=x.device))
+                     cell_overflow=overflow)
         return total, terms
 
     return energy
@@ -121,3 +147,16 @@ def make_force_fn(energy_fn):
             (g,) = torch.autograd.grad(e, xg)
         return -g, (e.detach(), {k: v.detach() for k, v in terms.items()})
     return fwd
+
+
+def make_dhdl_fn(energy_fn):
+    """dhdl(x, box, couple) -> dH/dlambda at fixed positions, by autograd
+    on couple; lambda = 1 - couple (reference convention, 0 = fully
+    coupled)."""
+    def dhdl(x, box, couple):
+        with torch.enable_grad():
+            c = torch.as_tensor(couple).detach().clone().requires_grad_(True)
+            e = energy_fn(x.detach(), box, c)[0]
+            (g,) = torch.autograd.grad(e, c)
+        return -g
+    return dhdl

@@ -26,7 +26,6 @@ clamped to S - 1 here; the masks zero what they read.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 import os
@@ -1231,25 +1230,14 @@ class FastSim:
         written there. Returns the snapshot list."""
         if snapshot_interval is None:
             snapshot_interval = self.cfg.snapshot_handlers.memory or n_steps
-        prof = contextlib.nullcontext()
-        if self.cfg.trace_dir:
-            from torch.profiler import ProfilerActivity, profile
-            acts = [ProfilerActivity.CPU] + (
-                [ProfilerActivity.CUDA] if self.device.type == "cuda"
-                else [])
-            prof = profile(activities=acts)
-        done = 0
-        with prof:
-            while done < n_steps:
-                todo = min(snapshot_interval, n_steps - done)
-                self.step(dt_ps, todo)
-                done += todo
-                if collect:
-                    self._record_snapshot(dt_ps)
-        if self.cfg.trace_dir:
-            os.makedirs(self.cfg.trace_dir, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(
-                self.cfg.trace_dir, f"fastsim_run_{self.step_count}.json"))
+        from .snapshot import run_in_chunks
+
+        def record(done):
+            if collect:
+                self._record_snapshot(dt_ps)
+
+        run_in_chunks(self, dt_ps, n_steps, snapshot_interval, record,
+                      "fastsim_run")
         return self.snapshots
 
     def _record_snapshot(self, dt_ps):

@@ -1,10 +1,13 @@
-"""Velocity-Verlet and Langevin-middle steps (port of the part of
-molchanica_tpu.md.integrators that FastSim's slice runs; CSVR and leapfrog
-are not ported yet).
+"""Integrators: leapfrog, velocity-Verlet, Langevin-middle; the CSVR
+thermostat (port of molchanica_tpu.md.integrators).
 
 Constraints are injected as two callables:
   constrain_positions(x_new, x_ref) -> x_new'
   constrain_velocities(v, x)        -> v'
+
+Random numbers come from the caller's torch.Generator: Langevin noise and
+the CSVR draws are made outside the step and passed in, so a test can feed
+the exact numbers another engine drew.
 """
 from __future__ import annotations
 
@@ -14,11 +17,46 @@ from typing import Callable, Optional
 import torch
 
 from ..constants import ACCEL_FACTOR, KB
+from .state import kinetic_energy
 
 
 def _accel(forces, masses, dof_mask):
     a = forces * (ACCEL_FACTOR / torch.clamp_min(masses, 1e-6))[:, None]
     return a * dof_mask[:, None]
+
+
+def csvr_ndof(dof_mask, n_constraints=0) -> int:
+    """Degrees of freedom the CSVR thermostat sees: 3 N_dof - constraints
+    - 3 (COM motion removed)."""
+    return int(round(3.0 * float(dof_mask.sum()))) - int(n_constraints) - 3
+
+
+def csvr_draws(generator, ndof: int, dtype, device):
+    """The two random numbers of one CSVR step from `generator`: R1 ~ N(0,
+    1) and S ~ chi^2 with ndof - 1 degrees of freedom, the sum of squares of
+    ndof - 1 standard normals (one draw of ndof normals, on the device)."""
+    z = torch.randn((max(ndof, 1),), generator=generator, dtype=dtype,
+                    device=device)
+    return z[0], torch.sum(z[1:] * z[1:])
+
+
+def csvr_rescale(velocities, masses, dof_mask, temp_target, dt, tau,
+                 n_constraints, r1, s):
+    """Bussi CSVR stochastic velocity rescaling with the draws (r1, s) of
+    `csvr_draws`; returns the scaled velocities.
+
+    alpha^2 = c + (1-c) (KEbar/(ndof KE)) (R1^2 + S)
+              + 2 R1 sqrt(c (1-c) KEbar/(ndof KE)),
+    c = exp(-dt/tau), KEbar = ndof kB T / 2."""
+    ndof = 3.0 * torch.sum(dof_mask) - n_constraints - 3.0
+    ke = torch.clamp_min(kinetic_energy(velocities, masses, dof_mask), 1e-10)
+    ke_bar = 0.5 * ndof * KB * temp_target
+    c = math.exp(-dt / tau)
+    ratio = ke_bar / (ndof * ke)
+    alpha2 = c + (1.0 - c) * ratio * (r1 * r1 + s) \
+        + 2.0 * r1 * torch.sqrt(c * (1.0 - c) * ratio)
+    alpha = torch.sqrt(torch.clamp_min(alpha2, 1e-12))
+    return velocities * alpha
 
 
 def make_integrator_step(
@@ -34,12 +72,15 @@ def make_integrator_step(
     constrain_velocities: Optional[Callable] = None,
     force_cap: Optional[float] = None,
     cadence: str = "light",
+    n_constraints: int = 0,
 ):
     """Build one_step(x, v, f, noise=None) -> (x, v, f, E, terms).
 
     `f` is carried across steps, so each step does one force evaluation.
-    `noise` (langevin_middle): pre-drawn standard normals of v.shape, one
-    [k, N, 3] draw per rebuild period made by the caller.
+    `noise`: for langevin_middle, standard normals of v.shape drawn by the
+    caller (None draws them from torch's default generator); for
+    leapfrog and velocity-Verlet with a thermostat tau, the CSVR draws
+    (r1, s) of `csvr_draws`.
     """
     cp = constrain_positions or (lambda x_new, x_ref: x_new)
     cv = constrain_velocities or (lambda v, x: v)
@@ -61,16 +102,29 @@ def make_integrator_step(
         xc = cp(xu, x)
         return xc, v + (xc - xu) / h
 
-    if kind == "verlet_velocity":
-        if thermostat_tau is not None:
-            raise NotImplementedError("CSVR is not ported yet")
+    def thermostat(v, draws):
+        if thermostat_tau is None:
+            return v
+        return csvr_rescale(v, masses, dof_mask, temp_target, dt,
+                            thermostat_tau, n_constraints, *draws)
 
+    if kind == "verlet_velocity":
         def one_step(x, v, f, noise=None):
             v_half = v + 0.5 * dt * _accel(f, masses, dof_mask)
             x_new, v_half = drift(x, v_half, dt)
             f_new, e, terms = eval_forces(x_new)
             v_new = v_half + 0.5 * dt * _accel(f_new, masses, dof_mask)
-            return x_new, cv(v_new, x_new), f_new, e, terms
+            return x_new, thermostat(cv(v_new, x_new), noise), f_new, e, \
+                terms
+
+    elif kind == "leapfrog":
+        def one_step(x, v, f, noise=None):
+            # v is v(t - dt/2): kick to v(t + dt/2), thermostat, drift
+            v_new = thermostat(v + dt * _accel(f, masses, dof_mask), noise)
+            x_new, v_new = drift(x, v_new, dt)
+            v_new = cv(v_new, x_new)
+            f_new, e, terms = eval_forces(x_new)
+            return x_new, v_new, f_new, e, terms
 
     elif kind == "langevin_middle":
         # BAOAB (OpenMM LangevinMiddle). "light": RATTLE once after the
@@ -111,6 +165,6 @@ def make_integrator_step(
             raise ValueError(f"unknown Langevin cadence: {cadence}")
 
     else:
-        raise ValueError(f"integrator kind not ported: {kind}")
+        raise ValueError(f"unknown integrator kind: {kind}")
 
     return one_step

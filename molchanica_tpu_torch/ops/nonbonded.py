@@ -1,8 +1,8 @@
-"""Nonbonded pair energies: LJ (Beutler softcore) + Coulomb, over explicit
-pair lists, the Ewald exclusion correction, and the host-side pair list of
-the coupled molecule (port of the parts of molchanica_tpu.ops.nonbonded
-that MdSim's cell-grid path runs; allpairs_energy and
-intramol_recip_compensation are not ported yet).
+"""Nonbonded pair energies: LJ (Beutler softcore) + Coulomb, dense all
+pairs (vacuum and small boxes), over explicit pair lists, the Ewald
+exclusion correction, and the coupled molecule's intramolecular pair list
+with its reciprocal-space compensation (port of
+molchanica_tpu.ops.nonbonded).
 
 Pairs straddling the coupled molecule get softcore LJ and linearly scaled
 Coulomb at coupling strength c (1 = fully coupled, reference lambda =
@@ -24,6 +24,13 @@ LJ_CLIP = 1.0e7
 
 def lorentz_berthelot(sig_i, sig_j, eps_i, eps_j):
     return 0.5 * (sig_i + sig_j), torch.sqrt(eps_i * eps_j)
+
+
+def lj_energy(r2, sigma, eps):
+    """Plain 12-6 LJ from the squared distance."""
+    s2 = (sigma * sigma) / r2
+    s6 = s2 * s2 * s2
+    return 4.0 * eps * (s6 * s6 - s6)
 
 
 def lj_softcore_energy(r2, sigma, eps, couple):
@@ -73,6 +80,45 @@ def _pair_couple(top, i, j, couple_strength):
     cm = top.couple_mask
     is_alch = cm[i] + cm[j] - 2.0 * cm[i] * cm[j]
     return 1.0 - is_alch * (1.0 - couple_strength)
+
+
+def _pair_mask_dense(n, atom_mask, excl_idx, excl_mask, pair14_idx,
+                     pair14_mask):
+    """[N, N] upper-triangle interaction mask with the excluded and 1-4
+    pairs removed (both orders of each listed pair)."""
+    mask = atom_mask[:, None] * atom_mask[None, :]
+    mask = torch.triu(mask, diagonal=1)
+    drop = torch.zeros((n, n), dtype=torch.bool, device=mask.device)
+    for idx, m in ((excl_idx, excl_mask), (pair14_idx, pair14_mask)):
+        i, j = idx[:, 0][m > 0], idx[:, 1][m > 0]
+        drop[i, j] = True
+        drop[j, i] = True
+    return torch.where(drop, torch.zeros_like(mask), mask)
+
+
+def allpairs_energy(x, box, top, couple_strength, ewald_beta=None,
+                    cutoff=None, lj_switch_start=None, lj_enabled=True,
+                    coulomb_enabled=True):
+    """Dense N x N (E_lj, E_coul), minimum image when `box` is given; for
+    vacuum systems and small boxes."""
+    n = x.shape[0]
+    dx = displacement(x[:, None, :], x[None, :, :], box)
+    r2 = torch.sum(dx * dx, dim=-1)
+    sig, eps = lorentz_berthelot(top.lj_sigma[:, None], top.lj_sigma[None, :],
+                                 top.lj_eps[:, None], top.lj_eps[None, :])
+    qq = top.charges[:, None] * top.charges[None, :]
+    cm = top.couple_mask
+    is_alch = cm[:, None] + cm[None, :] - 2.0 * cm[:, None] * cm[None, :]
+    couple = 1.0 - is_alch * (1.0 - couple_strength)
+    mask = _pair_mask_dense(n, top.atom_mask, top.excl_idx, top.excl_mask,
+                            top.pair14_idx, top.pair14_mask)
+    e_lj, e_c = pair_lj_coulomb(r2, qq, sig, eps, couple, ewald_beta, cutoff,
+                                lj_switch_start)
+    if not lj_enabled:
+        e_lj = torch.zeros_like(e_lj)
+    if not coulomb_enabled:
+        e_c = torch.zeros_like(e_c)
+    return torch.sum(e_lj * mask), torch.sum(e_c * mask)
 
 
 def pairlist_energy(x, box, top, idx, mask, coulomb_scale, lj_scale,
@@ -144,3 +190,17 @@ def intramol_pairs_np(top, max_coupled: int = 2048):
     if not pairs:
         return empty
     return (np.asarray(pairs, np.int32), np.ones((len(pairs),), np.float32))
+
+
+def intramol_recip_compensation(x, box, top, idx, mask, couple_strength,
+                                ewald_beta):
+    """+k qq erf(beta r)/r (1 - c^2) over the coupled molecule's
+    intramolecular non-excluded pairs: direct space keeps them at full
+    strength, the reciprocal sum scaled them by c^2."""
+    i, j = idx[:, 0], idx[:, 1]
+    dx = displacement(x[i], x[j], box)
+    r = torch.sqrt(torch.clamp_min(torch.sum(dx * dx, dim=-1), 1e-4))
+    qq = top.charges[i] * top.charges[j]
+    c2 = couple_strength * couple_strength
+    e = COULOMB_CONST * qq * torch.erf(ewald_beta * r) / r * (1.0 - c2)
+    return torch.sum(e * mask)

@@ -5,6 +5,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 from scipy.special import erfc as _erfc
 
 
@@ -39,17 +40,18 @@ def default_grid(box_extent, spacing: float = 1.0):
 
 
 def make_pme_recip_fn(top, cfg, box_extent, device=None):
-    """recip(x, box, couple) -> E_recip, differentiable in x: order-6 SPME
-    (ops/pme3.py) on cfg.pme_grid or default_grid(box), with the coupled
-    atoms' charges scaled by couple. `device` None means the CUDA card.
-    The mesh shape is `recip.grid`."""
+    """recip(x, box, couple) -> E_recip, differentiable in x and the box:
+    order-6 SPME (ops/pme3.py) on cfg.pme_grid or default_grid(box), with
+    the coupled atoms' charges scaled by couple, in cfg.dtype. `device`
+    None means the CUDA card. The mesh shape is `recip.grid`."""
     from ..device import resolve_device
     from .pme3 import make_pme3_recip_fn
 
     dev = resolve_device(device)
     grid_shape = tuple(cfg.pme_grid or default_grid(box_extent))
     beta = ewald_beta_for(cfg.coulomb_cutoff, cfg.ewald_rtol)
-    recip3 = make_pme3_recip_fn(grid_shape, beta, device=dev)
+    recip3 = make_pme3_recip_fn(grid_shape, beta, device=dev,
+                                dtype=getattr(torch, cfg.dtype))
     charges = (top.charges * top.atom_mask).to(dev)
     cm = top.couple_mask.to(dev)
 

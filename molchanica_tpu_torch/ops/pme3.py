@@ -8,8 +8,12 @@ classic PME force contraction against the same panels, recomputed in the
 backward pass rather than stored. Energy convention: tin-foil boundary,
 k = 0 dropped, net-charge background correction.
 
-All products are float32 matmuls; on the card they need
-``torch.backends.cuda.matmul.allow_tf32 = False`` (set by FastSim).
+The products are float32 matmuls (float64 where `dtype` asks for it); on
+the card they need ``torch.backends.cuda.matmul.allow_tf32 = False`` (set
+by FastSim and MdSim). The box gradient, which the MdSim barostat's
+scaling derivative needs, is analytic too: the explicit derivative of the
+influence function and the volume, plus the implicit one through the
+fractional coordinates u = x K / box, -(1 / box_a) sum_i x_ia dE/dx_ia.
 """
 from __future__ import annotations
 
@@ -93,14 +97,14 @@ class Pme3:
     function tracks the live box."""
 
     def __init__(self, grid_shape, beta, order: int = 6, chunk: int = 32768,
-                 device=None):
+                 device=None, dtype=torch.float32):
         device = resolve_device(device)
         self.K = tuple(int(k) for k in grid_shape)
         self.beta = float(beta)
         self.order = order
         self.chunk = chunk
         Kx, Ky, Kz = self.K
-        f32 = dict(dtype=torch.float32, device=device)
+        f32 = dict(dtype=dtype, device=device)
         self.Ks = torch.tensor(self.K, **f32)
         b2 = (_bspline_b2_n(Kx, order)[:, None, None]
               * _bspline_b2_n(Ky, order)[None, :, None]
@@ -205,8 +209,23 @@ class Pme3:
             e, DR, DI = self.energy_parts(x, q, box)
             return e, self.grads(x, q, box, DR, DI)[0]
 
+    def box_grad(self, x, q, box, gx):
+        """dE/dbox [3] at fixed x, given gx = dE/dx."""
+        with torch.enable_grad():
+            b = box.detach().requires_grad_(True)
+            with torch.no_grad():
+                R3, I3 = self._dft3(self._spread(x, q, box), None)
+                s2 = R3 * R3 + I3 * I3
+                qtot = torch.sum(q)
+            vol = b[0] * b[1] * b[2]
+            e = (COULOMB_CONST / (2.0 * vol)) * torch.sum(self._infl(b) * s2)
+            e = e - COULOMB_CONST * math.pi / (2.0 * self.beta * self.beta
+                                               * vol) * qtot * qtot
+            (gb,) = torch.autograd.grad(e, b)
+        return gb - torch.sum(x * gx, dim=0) / box
+
     def __call__(self, x, q, box):
-        """Differentiable in x and q; the box gradient is zero."""
+        """Differentiable in x, q and the box."""
         return _Pme3Fn.apply(x, q, box, self)
 
 
@@ -222,11 +241,15 @@ class _Pme3Fn(torch.autograd.Function):
     def backward(ctx, e_bar):
         x, q, box, DR, DI = ctx.saved_tensors
         gx, gq = ctx.pme.grads(x, q, box, DR, DI)
-        return e_bar * gx, e_bar * gq, torch.zeros_like(box), None
+        gb = (ctx.pme.box_grad(x, q, box, gx) if ctx.needs_input_grad[2]
+              else None)
+        return e_bar * gx, e_bar * gq, \
+            None if gb is None else e_bar * gb, None
 
 
-def make_pme3_recip_fn(grid_shape, beta, device=None):
+def make_pme3_recip_fn(grid_shape, beta, device=None, dtype=torch.float32):
     """recip(x, q_eff, box) -> E_recip, order 6 with the analytic gradient
-    (the reference's make_pme3_recip_fn(order=6, custom_grad=True)), on
-    `device` (None means the CUDA card)."""
-    return Pme3(grid_shape, beta, order=6, device=device)
+    (the reference's make_pme3_recip_fn(order=6, custom_grad=True), plus
+    the box gradient that its custom_grad=False form gets from autodiff),
+    on `device` (None means the CUDA card)."""
+    return Pme3(grid_shape, beta, order=6, device=device, dtype=dtype)

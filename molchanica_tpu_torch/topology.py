@@ -92,20 +92,25 @@ class Topology:
     def n_atoms(self) -> int:
         return self.masses.shape[0]
 
-    def to(self, device) -> "Topology":
-        """A copy with every tensor field on `device`."""
+    def to(self, device, dtype=None) -> "Topology":
+        """A copy with every tensor field on `device`; with `dtype`, the
+        floating-point fields also cast to it (index fields stay int64)."""
+        def conv(t):
+            t = t.to(device)
+            return t.to(dtype) if dtype is not None and t.is_floating_point() \
+                else t
         return dataclasses.replace(
-            self, **{f: getattr(self, f).to(device) for f in TENSOR_FIELDS})
+            self, **{f: conv(getattr(self, f)) for f in TENSOR_FIELDS})
 
 
-def topology_from_numpy(fields: dict, statics: dict,
-                        device="cpu") -> Topology:
+def topology_from_numpy(fields: dict, statics: dict, device="cpu",
+                        dtype=torch.float32) -> Topology:
     """Topology from numpy arrays keyed by field name (the reference
-    Topology's fields, e.g. ``np.asarray(top.masses)``) plus its statics."""
+    Topology's fields, e.g. ``np.asarray(top.masses)``) plus its statics;
+    floating-point fields in `dtype`."""
     def conv(a):
         a = np.asarray(a)
-        dt = torch.int64 if np.issubdtype(a.dtype, np.integer) \
-            else torch.float32
+        dt = torch.int64 if np.issubdtype(a.dtype, np.integer) else dtype
         return torch.tensor(a, dtype=dt, device=device)
 
     return Topology(**{f: conv(fields[f]) for f in TENSOR_FIELDS},
@@ -140,12 +145,14 @@ def make_topology(
     hclusters=None,      # list of (heavy, [h...], [r0...])
     dof_mask=None,       # per-atom; default: 1 for real atoms
     vsites=None,         # list of (m, o, h1, h2, weight)
+    dtype=torch.float32,
 ) -> Topology:
     """Fixed-shape Topology from host-side python/numpy data.
 
     Exclusions default to the 1-2 and 1-3 pairs of the bonds and angles;
     1-4 pairs default to the dihedral end atoms not already excluded. The
-    tensors live on the CPU; engines move what they use.
+    tensors live on the CPU, floating-point ones in `dtype`; engines move
+    what they use.
     """
     masses = np.asarray(masses, np.float64)
     n_real = masses.shape[0]
@@ -276,4 +283,4 @@ def make_topology(
         water_r_om=float(water_geometry[2]),
         n_atoms_real=n_real, n_mol=n_mol,
     )
-    return topology_from_numpy(fields, statics)
+    return topology_from_numpy(fields, statics, dtype=dtype)

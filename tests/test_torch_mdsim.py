@@ -12,6 +12,10 @@ init within 1e-4 of max|F| per site plus 1e-5 of the site's direct-space
 scale (excluded solute pairs enter the kernel at ~1e5 kcal/mol/A and are
 subtracted again, which leaves a float32 residue there); 8 velocity-Verlet
 steps (no thermostat, dt = 0.5 fs, rebuild every 4) within 5e-3 A.
+`test_configuration_matches_reference` holds each configuration the
+engine once refused (vacuum, no pallas, allpairs_cutoff, FIRE, barostat,
+coupled atoms, leapfrog) to the reference MdSim; its docstring states the
+tolerances. tests/test_torch_mdsim_default.py covers the default path.
 """
 import functools
 
@@ -221,8 +225,8 @@ def test_pme_rest_energy(pair):
     for k in ("bond", "angle", "dihedral", "lj", "coulomb", "recip"):
         ref = float(np.float32(terms_j[k]))
         assert abs(float(terms_t[k]) - ref) <= 1e-5 * abs(ref), k
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TE.make_energy_fn(tt, tcfg, "cells_pme", pme_recip_fn=trec)
+    with pytest.raises(ValueError):
+        TE.make_energy_fn(tt, tcfg, "cells_grid", pme_recip_fn=trec)
 
 
 def _term_ok(k, got, ref, e_scale):
@@ -311,31 +315,208 @@ def test_device_none_needs_cuda(system):
             _port(asys, tt, v0, device=device)
 
 
+def _reference(asys, jt, v0, jcfg, **kw):
+    """The reference MdSim, its pallas backend built in interpret mode."""
+    kw = dict(dict(box_extent=asys.box_extent, velocities=v0,
+                   method="cells_pme", relax=False), **kw)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax, "default_backend", lambda: "tpu")
+        mp.setattr(DF, "make_pallas_direct_fn", functools.partial(
+            DF.make_pallas_direct_fn, interpret=True))
+        return JMd(jt, jcfg, asys.positions, **kw)
+
+
+def _coupled(jt, tt):
+    """The solute (molecule 0) as the coupled molecule."""
+    cm = (np.asarray(jt.mol_id) == 0) * np.asarray(jt.atom_mask)
+    return (jt.replace(couple_mask=jnp.asarray(cm, jnp.float32)),
+            tt.__class__(**{**vars(tt), "couple_mask": torch.tensor(
+                cm, dtype=torch.float32)}))
+
+
+def _f64(jt):
+    return jt.replace(**{f: jnp.asarray(getattr(jt, f), jnp.float64)
+                         for f in TENSOR_FIELDS
+                         if jnp.issubdtype(getattr(jt, f).dtype,
+                                           jnp.floating)})
+
+
+def _dense_scales(ts, x):
+    """{"lj", "coulomb"}: the sums of |e_lj| and |e_c| over the pairs of
+    the dense allpairs sum, in float64: their float32 scale (the Coulomb
+    total cancels ~1e5 kcal/mol of pair terms)."""
+    top = ts.top.to("cpu", torch.float64)
+    x = x.to(torch.float64)
+    box = None if ts.state.box is None else ts.state.box.to(torch.float64)
+    d = x[:, None, :] - x[None, :, :]
+    if box is not None:
+        d = d - box * torch.round(d / box)
+    r2 = (d * d).sum(-1)
+    sig, eps = TN.lorentz_berthelot(top.lj_sigma[:, None],
+                                    top.lj_sigma[None, :],
+                                    top.lj_eps[:, None], top.lj_eps[None, :])
+    qq = top.charges[:, None] * top.charges[None, :]
+    cut = None if box is None else ts.cfg.lj_cutoff
+    e_lj, e_c = TN.pair_lj_coulomb(r2, qq, sig, eps, 1.0, cutoff=cut)
+    mask = TN._pair_mask_dense(x.shape[0], top.atom_mask, top.excl_idx,
+                               top.excl_mask, top.pair14_idx,
+                               top.pair14_mask)
+    return {"lj": float((e_lj.abs() * mask).sum()),
+            "coulomb": float((e_c.abs() * mask).sum())}
+
+
+def _force_matches(js, ts, scaled=True):
+    """force_fn at the reference's initial state, per site within 1e-4 of
+    max|F| (plus, with `scaled`, 1e-5 of the site's direct-space scale:
+    the direct space adds and subtracts excluded pairs), terms rel 1e-5
+    (recip 3e-5) of |ref|, plus for lj and coulomb the direct space's |e|
+    sums (MdSim.direct_space_scales) or the dense sum's (`_dense_scales`):
+    the float32 scale of those totals."""
+    s = js.state
+    fj, (_, tj) = jax.jit(js.force_fn)(s.positions, s.box, s.couple)
+    x = _t(s.positions)
+    st = ts.state
+    ft, (_, tt_) = ts.force_fn(x, st.box, st.couple)
+    fj = np.asarray(fj, np.float32)
+    err = np.abs(ft.numpy() - fj).max(axis=1)
+    tol = 1e-4 * np.abs(fj).max()
+    if scaled:
+        f_scale, e_scale = ts.direct_space_scales(x)
+        tol = tol + 1e-5 * f_scale.numpy()
+    else:
+        e_scale = _dense_scales(ts, x)
+    assert (err <= tol).all(), float((err / tol).max())
+    for k in ("bond", "angle", "dihedral", "lj", "coulomb", "recip"):
+        ref = float(np.float32(tj[k]))
+        rtol = 3e-5 if k == "recip" else 1e-5
+        assert abs(float(tt_[k]) - ref) <= rtol * (abs(ref)
+                                                   + e_scale.get(k, 0.0)), k
+    return tt_, e_scale
+
+
 @pytest.mark.parametrize("case", ["vacuum", "no_pallas", "allpairs_cutoff",
                                   "relax", "barostat", "coupled",
                                   "leapfrog"])
-def test_not_ported_raises(system, case):
+def test_configuration_matches_reference(system, case):
+    """The configurations this engine once refused, each against the
+    reference MdSim from the same state: vacuum (allpairs) and
+    allpairs_cutoff (forces by autograd of the dense sum on both sides),
+    use_pallas=False (the cluster backend), 10 FIRE iterations at
+    construction (positions within 5e-3 A), the barostat's pressure at the
+    initial state (no further from the reference's float64 pressure than
+    twice the reference's float32 one), coupled atoms at couple 0.5 (dhdl
+    within 4 float32 floors of eps32 (sum|terms| + the direct |e| sums) /
+    2h) and leapfrog (8 steps within 5e-3 A)."""
     asys, tt, v0 = system
+    jt = asys.topology
     kw = dict(box_extent=asys.box_extent, velocities=v0, method="cells_pme",
               relax=False, device="cpu")
     cfg = _tcfg()
-    top = tt
-    if case == "vacuum":
-        kw.update(box_extent=None, method=None)
+    jcfg = JCfg(integrator=JInt.verlet_velocity(thermostat=None),
+                hydrogen_constraint=JH.shake(), use_scan_chunks=False, **KW)
+    jkw = {}
+    if case in ("vacuum", "allpairs_cutoff"):
+        kw.update(method=None)
+        jkw.update(method=None)
+        if case == "vacuum":
+            kw.update(box_extent=None)
+            jkw.update(box_extent=None)
     elif case == "no_pallas":
         cfg = _tcfg(use_pallas=False)
-    elif case == "allpairs_cutoff":
-        kw.update(method=None)           # 1,312 sites: allpairs_cutoff
+        jcfg = jcfg.replace(use_pallas=False)
     elif case == "relax":
-        cfg = _tcfg(max_init_relaxation_iters=50)
+        cfg = _tcfg(max_init_relaxation_iters=10)
+        jcfg = jcfg.replace(max_init_relaxation_iters=10)
         kw.update(relax=None)
+        jkw.update(relax=None)
     elif case == "barostat":
-        cfg = _tcfg(barostat_cfg=BarostatCfg())
+        cfg = _tcfg(barostat_cfg=BarostatCfg(1.0, tau=0.1))
     elif case == "coupled":
-        cm = tt.couple_mask.clone()
-        cm[:10] = 1.0
-        top = tt.__class__(**{**vars(tt), "couple_mask": cm})
+        jt, tt = _coupled(jt, tt)
     else:
         cfg = cfg.replace(integrator=Integrator.leapfrog(None))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MdSim(top, cfg, asys.positions, **kw)
+        jcfg = jcfg.replace(integrator=JInt.leapfrog(None))
+    ts = MdSim(tt, cfg, asys.positions, **kw)
+    if case == "barostat":
+        _check_barostat(ts, jt, jcfg)
+        return
+    js = _reference(asys, jt, v0, jcfg, **jkw)
+    assert ts.method == js.method
+    assert ts._nbr_backend == js._nbr_backend
+    if case == "relax":
+        assert ts.relax_log["iters"] == 10 and ts.relax_log["kept"] == "end"
+        assert ts.force_evals == 11        # FIRE and its end check
+        np.testing.assert_allclose(ts.state.positions.numpy(),
+                                   np.asarray(js.state.positions), rtol=0,
+                                   atol=5e-3)
+        return
+    if case == "leapfrog":
+        js.step(DT, 8)
+        ts.step(DT, 8)
+        np.testing.assert_allclose(ts.state.positions.numpy(),
+                                   np.asarray(js.state.positions), rtol=0,
+                                   atol=5e-3)
+        return
+    if case == "coupled":
+        js.configure_alchemical_window(0.5)
+        ts.configure_alchemical_window(0.5)
+    terms, e_scale = _force_matches(
+        js, ts, scaled=case in ("no_pallas", "coupled"))
+    if case == "coupled":
+        s, st = js.state, ts.state
+        d_j = float(jax.jit(js.dhdl_fn)(s.positions, s.box, s.couple))
+        d_t = float(ts.dhdl_fn(st.positions, st.box, st.couple))
+        floor = float(np.finfo(np.float32).eps) * (
+            sum(abs(float(terms[k])) for k in ("bond", "angle", "dihedral",
+                                               "lj", "coulomb", "recip"))
+            + sum(e_scale.values())) / 2e-3
+        assert abs(d_t - d_j) <= 4 * floor, (d_t, d_j, floor)
+        assert d_t != 0.0
+
+
+def _check_barostat(ts, jt, jcfg):
+    """The K2 path's barostat: the molecular virial pressure by autograd of
+    the cell-window energy (as the reference's _build_xla_energy), at the
+    initial state, against the reference's scaling_pressure_bar in float32
+    and float64; then a step call scales the box."""
+    from molchanica_tpu.md import barostat as JBar
+    from molchanica_tpu.md.engine import _build_xla_energy
+
+    s = ts.state
+    x = s.positions.numpy()
+    v = s.velocities.numpy()
+    box = s.box.numpy()
+    p_ref = {}
+    for name in ("float32", "float64"):
+        dt = jnp.dtype(name)
+        top = jt if name == "float32" else _f64(jt)
+        e_fn = _build_xla_energy(top, jcfg.replace(dtype=name), "cells_pme",
+                                 box.astype(name), x.astype(name))
+        pressure = jax.jit(lambda x_, v_, b_: JBar.scaling_pressure_bar(
+            lambda a, b, c: e_fn(a, b, c)[0], x_, b_, v_, top.masses,
+            top.dof_mask, jnp.asarray(1.0, dt), mol_id=top.mol_id,
+            n_mol=top.n_mol))
+        p_ref[name] = float(pressure(x.astype(name), v.astype(name),
+                                     box.astype(name)))
+    x_new, box_new = ts._barostat(s.positions, s.velocities, s.box,
+                                  s.couple, None, 0.008, 0)
+    p = float(ts._last_pressure)
+    p32, p64 = p_ref["float32"], p_ref["float64"]
+    assert abs(p - p64) <= max(2.0 * abs(p32 - p64), 1e-5 * abs(p64)), \
+        (p, p32, p64)
+    mu = float(box_new[0] / s.box[0])
+    assert mu != 1.0 and (mu < 1.0) == (p < 1.0)
+    ts.step(DT, 4)
+    assert float(ts.state.box[0]) != float(s.box[0])
+    assert len(ts.pressure_log) == 2       # the direct call and the step's
+    assert np.isfinite(ts.state.positions.numpy()).all()
+
+
+def test_not_ported_raises(system):
+    """The one configuration still refused: the cell-grid kernel in
+    float64 (the reference silently falls back to clusters there)."""
+    asys, tt, v0 = system
+    with pytest.raises(NotImplementedError, match="float32 only"):
+        MdSim(tt, _tcfg(dtype="float64"), asys.positions,
+              box_extent=asys.box_extent, velocities=v0, method="cells_pme",
+              relax=False, device="cpu")

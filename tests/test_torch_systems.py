@@ -159,10 +159,10 @@ def test_fast_sim_needs_cuda_unless_cpu_is_asked(systems):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port (MdSim's cell-grid path, the hydration
-    path, the parallel package, the barostat, snapshots and the probe
-    among them), and chip_smoke, import without loading jax, flax or any
-    molchanica_tpu module."""
+    """Every module of the port (MdSim's backends, FIRE and integrators,
+    the hydration path, the parallel package, the barostat, snapshots and
+    the probe among them), and chip_smoke, import without loading jax,
+    flax or any molchanica_tpu module."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import molchanica_tpu_torch as p\n"
@@ -177,7 +177,9 @@ def test_port_imports_no_jax():
         "'ops.pme2', 'parallel', 'parallel.comm', 'parallel.launch', "
         "'parallel.spatial', 'parallel.spatial_colpair', "
         "'parallel.dryrun', 'md.barostat', 'md.snapshot', "
-        "'ops.probe_prefetch']\n"
+        "'ops.probe_prefetch', 'ops.clusters', 'ops.cells', "
+        "'md.minimize', 'md.integrators', 'md.dynamics', "
+        "'systems.testmols']\n"
         "missing = [m for m in need if 'molchanica_tpu_torch.' + m "
         "not in sys.modules]\n"
         "print(len([m for m in sys.modules "

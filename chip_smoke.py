@@ -27,7 +27,7 @@ Phases, each printed on lines of its own:
      time and direct_force_work's model of the launch;
   9. the MdSim path: a warm-up call and one timed call; K2 launch counts
      over exactly those calls, against force_evals and against
-     n + ceil(n/20) + 1 per call;
+     n + ceil(n/20) + 1 per call of at most steps_per_chunk steps;
  10. MdSim engine parity: force_fn on the card against the same MdSim on
      the CPU, on the initial state;
  11. the hydration system: methanol from the committed MolSpec
@@ -104,9 +104,32 @@ Phases, each printed on lines of its own:
      couple 0.5: the autograd dH/dlambda on the card against the CPU
      (rel 1e-5; the FD one within 8 of its float32 floors), then
      steps, T in band;
- 30. the kernel JSON line, the card line, and the final JSON result line.
-     Phases 24-29 launch no hand-written kernel: the JAX package computes
-     their direct space in XLA, so the port does it in plain torch.
+ 30. G: the screening farm (scripts/bench_all.py's config-5 farm shape)
+     on config 3 on K2: MdSim (Langevin gamma 5, FIRE 150, use_pallas)
+     and ReplicaFarm(sim, 4, seed=3), 5 + 50 farm steps with K2 launches
+     counted against the farm's force evaluations; on the diverged
+     replicas one batched K2 launch against each replica's single launch
+     (bitwise) and plain version (per slot and cell), pair counts; the
+     batched launch's graph_ms beside 4 single launches'; T per replica;
+     kernels per farm step (profiler), peak memory;
+ 31. H: the hydration farm: on phase 13's state one batched force of 13
+     replicas against 13 single MdSim evaluations, and one farm step of
+     two replicas card vs CPU with the same noise; then run_sol_sim at
+     the reference protocol's width (13 windows, its own MdConfig: FIRE
+     400, clusters) with the step counts cut (40 + 66, dhdl every 10):
+     ms per farm and window step, kernels per farm step, peak memory, the
+     relaxation path, dG and SEM (not gated), each window's mean dH/dl
+     beside its float32 FD floor; T per replica;
+ 32. I: LogP (run_alchemical) at its default boxes and LOGP_LAMBDAS, 20
+     + 22 steps: each phase's sites, time and farm ms per step, finite,
+     T per replica;
+ 33. J: the replica-TI dry run with its replica axis in two chunks on the
+     card against one chunk, then the crystal, shrinking-box (with its
+     mixing diagnostics) and boundary-layer workloads at small sizes;
+ 34. the kernel JSON line, the card line, and the final JSON result line.
+     Phases 24-29 and H-J launch no hand-written kernel: the JAX package
+     computes their direct space in XLA, so the port does it in plain
+     torch.
 An NVT hold (the mean temperature of further FastSim steps near 310 K)
 runs only when --hold N asks for it.
 
@@ -192,8 +215,8 @@ K2_GRIDS = (("C=128", 1, (30.0, 31.0, 32.0), 7.0, 0.1),
 K2_GRID_MOVE = 0.3
 K2_GRID_COUPLE = 0.5
 K2_GRID_COUPLED = 5
-N_TIMED = 1000
-N_WARM = 200
+N_TIMED = 500
+N_WARM = 100
 N_MD_TIMED = 200
 N_MD_WARM = 40
 # kernel vs plain, whole arrays: max|dF| / max|F| and total energy rel
@@ -247,10 +270,39 @@ PROBE_BIG = (416, 8, 26624)
 N_NPT_STEPS = 200
 # phases 24-29 (MdSim's default engine): step counts
 N_MDD_WARM = 40
-N_MDD_STEPS = 200
+N_MDD_STEPS = 100
 N_MDD_NPT_STEPS = 200
 N_VAC_STEPS = 2000
 N_MDD_ALCH_STEPS = 20
+# phases G-J (the replica farm): G's replicas, warm-up and timed farm
+# steps, and the farm steps of each profiler window; H's run_sol_sim step
+# counts (the reference protocol's 5,000 + 20,000 cut); I's LogP step
+# counts; J's windows of the replica-TI dry run and how far its split farm
+# may part from the unsplit one (float32 roundoff)
+N_FARM = 4
+N_FARM_WARM = 5
+N_FARM_STEPS = 50
+FARM_PROFILE_STEPS = 3
+H_EQUIL = 40
+H_PROD = 66
+H_DHDL_INTERVAL = 10
+I_EQUIL = 20
+I_PROD = 22
+J_WINDOWS = 4
+J_SPLIT_TOL = 1e-5
+# phases H and I: a lambda window whose final T is above WINDOW_BLOWUP_K
+# has blown up. At the end points (lambda 0 and 1) that fails the phase.
+# At an intermediate lambda it is the collapse that MdSim's linear
+# alchemical Coulomb allows there (no softcore, as in the reference): the
+# softcore LJ no longer holds a solute charge off an opposite solvent
+# charge. The reference's own run_sol_sim shows it at these step counts
+# (PERF.md, Open questions). Such a window is printed and left out of a
+# second dG, beside run_sol_sim's own
+WINDOW_BLOWUP_K = 1e4
+# J's properties: crystal and boundary-layer steps, shrinking-box steps per
+# stage (their JAX tests run 200, 450 and 60)
+J_STEPS = 150
+J_STAGE = 30
 # phase E: the card's float32 force on relaxed ethanol against the CPU's
 # float64 one, in units of the CPU's own float32 error against it
 VAC_FLOORS = 4.0
@@ -819,7 +871,11 @@ def md_path(md, calls, torch, np):
     elapsed = time.perf_counter() - t0
     launches = DirectForce.launches
     n_eval = md.force_evals - evals0
-    expected = sum(c + -(-c // k) + 1 for c in calls)
+    # a call of more than steps_per_chunk steps runs as calls of at most
+    # steps_per_chunk, each n + ceil(n/k) + 1 force evaluations
+    spc = md.cfg.steps_per_chunk
+    pieces = [min(spc, c - d) for c in calls for d in range(0, c, spc)]
+    expected = sum(p + -(-p // k) + 1 for p in pieces)
     ms_step = elapsed / n * 1e3
     ns_day = n * dt / 1000.0 / elapsed * 86400.0
     t_final = md.temperature()
@@ -830,7 +886,8 @@ def md_path(md, calls, torch, np):
         f"T={t_final:.2f} K E_pot(last)={float(md.state.pe_last):.3f} "
         f"kcal/mol finite={finite} overflow={ovf} C={md._plan.capacity}")
     say(f"[md] direct_force launches {launches}, force_evals {n_eval}, "
-        f"expected {expected} (n + ceil(n/{k}) + 1 over calls {calls})")
+        f"expected {expected} (n + ceil(n/{k}) + 1 over the calls "
+        f"{pieces} that steps {calls} make)")
     if not finite or not 100.0 < t_final < 600.0:
         raise SystemExit(f"unstable MdSim run: finite={finite} T={t_final}")
     if not launches == n_eval == expected:
@@ -1830,16 +1887,20 @@ def default_md_phase(asys, d, torch, np):
     (velocity-Verlet + CSVR at tau 0.1 ps, SHAKE, FIRE over 200
     iterations, use_pallas=False: the cluster-pair backend) at the 9 A
     cutoff and seed 7, from eq25k.npz's positions (velocities drawn at
-    310 K). FIRE climbs far above E0 on this state (the reference's FIRE
-    climbs alike on the 1,312-site test system:
-    tests/test_torch_fire.py::test_fire_climbs_like_the_reference)
-    and the engine then keeps the lowest state it evaluated, so the
-    issue's gate (the energy after FIRE at most E0 + max(1% |E0|, 10
-    kcal/mol)) holds by construction. What FIRE must show instead: its
-    lowest evaluated energy lies at least that margin below E0, and the
-    state kept has the energy FIRE gave it (the end one or the lowest)
-    after the replan (rel 1e-5 of |E| plus the direct space's |e| sums,
-    as phase B). The waters stay rigid."""
+    310 K). FIRE runs in the reference's block structure (two blocks of
+    100 iterations when the first block's end passes E0 + max(1% |E0|,
+    10 kcal/mol), else one loop of 200 from the start); the path, each
+    block's end and the state kept are printed. A single FIRE loop climbs
+    far above E0 on this state (the reference's FIRE climbs alike on the
+    1,312-site test system:
+    tests/test_torch_fire.py::test_fire_climbs_like_the_reference); where
+    the path's end fails that bound the engine keeps the lowest state the
+    path evaluated, so the energy after FIRE at most E0 + the margin
+    holds by construction. What FIRE must show besides: its lowest
+    evaluated energy lies at least that margin below E0, and the state
+    kept has the energy FIRE gave it (the end one or the lowest) after the
+    replan (rel 1e-5 of |E| plus the direct space's |e| sums, as phase B).
+    The waters stay rigid."""
     from molchanica_tpu_torch.md.config import MdConfig
     from molchanica_tpu_torch.md.engine import MdSim
 
@@ -1862,6 +1923,9 @@ def default_md_phase(asys, d, torch, np):
         f"fine cells {plan.fine_cells}; integrator "
         f"{md.cfg.integrator.kind} tau={md.cfg.integrator.thermostat_tau} "
         f"constraints={md.n_constraints} pme={md._recip.grid}")
+    say(f"[mdd] FIRE path {r['path']} (blocks of {r['block']}; the "
+        f"first block's end against E0 + max(1% |E0|, 10) chooses it), "
+        f"block ends {[round(e, 3) for e in r['block_ends']]}")
     say(f"[mdd] FIRE: E {e0:.3f} at the start, {r['e_end']:.3f} at the "
         f"end, lowest evaluated {r['e_lowest']:.3f}; kept the {r['kept']} "
         f"state (the end one unless it fails E0 + max(1% |E0|, 10)): E "
@@ -1889,6 +1953,7 @@ def default_md_phase(asys, d, torch, np):
     if rigid >= RIGID_TOL:
         raise SystemExit(f"waters not rigid after FIRE: {rigid}")
     return md, dict(init_s=wall, fire_s=r["seconds"], fire_iters=r["iters"],
+                    fire_path=r["path"], block_ends=r["block_ends"],
                     e_first=e0, e_end=r["e_end"], e_lowest=r["e_lowest"],
                     kept=r["kept"], e_after=e_after, rigid_err=rigid,
                     n_clusters=plan.n_clusters, m=plan.m_neighbors)
@@ -2294,16 +2359,16 @@ def nvt_hold(sim, n, np):
         raise SystemExit(f"NVT hold off target: {mean} K")
 
 
-def profile_steps(sim, n, torch, out_dir, prefix=""):
-    """Trace n steps: device busy share, kernel launches per step and the
-    kernels by device time (full tables in out_dir/profile.txt if given)."""
+def profile_calls(fn, torch):
+    """Trace one call of fn(): (key_averages, their device-time key, the
+    device-side events as (time, event), device ms, kernels, wall ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sim.step(0.002, n)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     ka = prof.key_averages()
@@ -2316,6 +2381,14 @@ def profile_steps(sim, n, torch, out_dir, prefix=""):
            if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(t for t, _ in dev) / 1e3
     launches = sum(e.count for _, e in dev)
+    return ka, key, dev, dev_ms, launches, wall_ms
+
+
+def profile_steps(sim, n, torch, out_dir, prefix=""):
+    """Trace n steps: device busy share, kernel launches per step and the
+    kernels by device time (full tables in out_dir/profile.txt if given)."""
+    ka, key, dev, dev_ms, launches, wall_ms = profile_calls(
+        lambda: sim.step(0.002, n), torch)
     say(f"[{prefix}profile] {n} steps: wall {wall_ms / n:.3f} ms/step, "
         f"device busy {dev_ms / n:.3f} ms/step "
         f"({100.0 * dev_ms / wall_ms:.1f}%), "
@@ -2328,6 +2401,578 @@ def profile_steps(sim, n, torch, out_dir, prefix=""):
             fh.write(ka.table(sort_by=key, row_limit=80))
             fh.write("\n\n")
             fh.write(ka.table(sort_by="self_cpu_time_total", row_limit=80))
+
+
+def farm_force_gate(f, f_ref, f_scale):
+    """max over sites of |dF| / (ENGINE_TOL_F max|F_ref| + ENGINE_TOL_DIRECT
+    x the site's direct-space scale): the card-vs-CPU engine gate."""
+    err = (f - f_ref).abs().amax(dim=-1)
+    tol = ENGINE_TOL_F * float(f_ref.abs().max()) \
+        + ENGINE_TOL_DIRECT * f_scale
+    return float((err / tol).max())
+
+
+def farm_temperatures(farm, tag, np):
+    """Per-replica T and finiteness of a farm, gated at 100 K < T < 600 K."""
+    temps = farm.temperatures()
+    finite = bool(np.isfinite(farm.x.detach().cpu().numpy()).all())
+    say(f"[{tag}] T per replica {np.round(temps, 2).tolist()} K, "
+        f"finite={finite}")
+    if not finite or not ((temps > 100.0) & (temps < 600.0)).all():
+        raise SystemExit(f"{tag}: finite={finite} T={temps.tolist()}")
+    return temps
+
+
+def recorded_farms(torch):
+    """Every ReplicaFarm the workloads build while the context is open, in
+    a list: the port's class replaced, where run_sol_sim and LogP import
+    it, by a subclass that keeps itself."""
+    import contextlib
+
+    from molchanica_tpu_torch.parallel import replicas
+    from molchanica_tpu_torch.properties import logp
+
+    farms = []
+    base = replicas.ReplicaFarm
+
+    class Recorded(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            farms.append(self)
+
+    @contextlib.contextmanager
+    def ctx():
+        replicas.ReplicaFarm = logp.ReplicaFarm = Recorded
+        try:
+            yield farms
+        finally:
+            replicas.ReplicaFarm = logp.ReplicaFarm = base
+    return ctx()
+
+
+def window_blowups(farm, windows, tag, np):
+    """Phases H and I on a finished farm: each window's final T and
+    finiteness. Fails if a position or T is not finite, or if an end-point
+    window (lambda 0 or 1) is above WINDOW_BLOWUP_K; an intermediate window
+    above it is a collapse (see WINDOW_BLOWUP_K). Prints the collapsed
+    windows and the TI dG without them; returns their lambdas and that
+    dG."""
+    from molchanica_tpu_torch.md.alchemical import free_energy_ti_with_sem
+
+    temps = farm.temperatures()
+    finite = bool(np.isfinite(farm.x.detach().cpu().numpy()).all())
+    lams = np.asarray([w.lam for w in windows])
+    hot = ~(temps <= WINDOW_BLOWUP_K)
+    ends = hot & ((lams <= 1e-6) | (lams >= 1.0 - 1e-6))
+    collapsed = [round(float(x), 4) for x in lams[hot & ~ends]]
+    kept = [w for w, h in zip(windows, hot) if not h]
+    dg = sem = float("nan")
+    if len(kept) >= 2:
+        dg, sem = free_energy_ti_with_sem(kept)
+    say(f"[{tag}] windows above {WINDOW_BLOWUP_K:g} K: lambda {collapsed} "
+        f"collapsed (intermediate), {lams[ends].tolist()} at an end point; "
+        f"TI without the collapsed windows: decoupling dG {dg:.4f} SEM "
+        f"{sem:.4f} "
+        f"over {len(kept)} windows")
+    if not finite or not np.isfinite(temps).all() or ends.any():
+        raise SystemExit(f"{tag}: finite={finite} T={temps.tolist()}")
+    return collapsed, dg
+
+
+def farm_k2_phase(asys, d, torch, np):
+    """Phase G: the screening farm of scripts/bench_all.py (config 5's farm
+    shape) on config 3, on K2: MdSim with Langevin-middle (gamma 5/ps) at
+    310 K, SHAKE, FIRE over 150 iterations, use_pallas=True from
+    eq25k.npz's positions, ReplicaFarm(sim, 4, seed=3), 5 steps of 2 fs,
+    then N_FARM_STEPS timed steps, K2 launches counted over exactly those
+    two calls and held to the farm's force evaluations. Between the calls,
+    on the farm's diverged replicas after a rebuild: one batched K2 launch
+    against each replica's single launch (the same bits), each replica's
+    slice against its plain version (k2 gates per slot and per cell), each
+    replica's pair count against the plain count. Then each replica finite
+    at 100 K < T < 600 K, and a profiler window of FARM_PROFILE_STEPS steps
+    for the kernels per farm step. Returns (kernel entry, summary)."""
+    from molchanica_tpu_torch.md.config import (HydrogenConstraint,
+                                                Integrator, MdConfig)
+    from molchanica_tpu_torch.md.engine import MdSim
+    from molchanica_tpu_torch.ops.direct_force import (DirectForce,
+                                                       cell_energies,
+                                                       direct_force_cuda,
+                                                       direct_force_parity,
+                                                       direct_force_plain)
+    from molchanica_tpu_torch.parallel.replicas import ReplicaFarm
+
+    cfg = MdConfig(integrator=Integrator.langevin_middle(gamma=5.0),
+                   temp_target=310.0, lj_cutoff=9.0, coulomb_cutoff=9.0,
+                   hydrogen_constraint=HydrogenConstraint.shake(),
+                   dtype="float32", max_init_relaxation_iters=150,
+                   steps_per_chunk=50, seed=2, use_pallas=True)
+    t0 = time.perf_counter()
+    md = MdSim(asys.topology, cfg, d["x"], box_extent=asys.box_extent,
+               device="cuda")
+    torch.cuda.synchronize()
+    r = md.relax_log
+    say(f"[farm-k2] MdSim init {time.perf_counter() - t0:.1f} s (FIRE "
+        f"{r['seconds']:.1f} s, path {r['path']}, block ends "
+        f"{[round(e, 3) for e in r['block_ends']]}, kept {r['kept']}); "
+        f"backend {md._nbr_backend} nc={md._plan.nc} "
+        f"C={md._plan.capacity}")
+    if md._nbr_backend != "pallas":
+        raise SystemExit(f"farm: backend {md._nbr_backend}, not K2")
+    farm = ReplicaFarm(md, N_FARM, seed=3)
+    R = farm.n
+    torch.cuda.reset_peak_memory_stats()
+    DirectForce.launches = 0
+    evals0 = farm.force_evals
+    t0 = time.perf_counter()
+    farm.step(0.002, N_FARM_WARM)
+    torch.cuda.synchronize()
+    say(f"[farm-k2] warm-up {N_FARM_WARM} farm steps in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # the kernel on the diverged replicas (launches here are not counted)
+    ch = farm._chunks[0]
+    b = ch.b
+    with torch.no_grad():
+        xv = b.place(farm.x)
+        (sa, _, shift), ovf = b.rebuild(xv, md.state.box)
+        center, ghost = md._direct.inputs(xv, md.state.box, sa, shift)
+    plan, direct = md._plan, md._direct
+    couples, beta = ch.c, md._beta
+    n_b = torch.zeros(R, dtype=torch.int64, device="cuda")
+    out_b = direct_force_cuda(plan, center, ghost, couples, beta,
+                              counts=n_b)
+    worst_f = worst_e = err_max = 0.0
+    pairs = []
+    for k in range(R):
+        out_1 = direct_force_cuda(plan, center[k], ghost[k], couples[k],
+                                  beta)
+        stats = {}
+        out_p = direct_force_plain(center[k], ghost[k], direct.starts,
+                                   couples[k], beta, direct.rc2,
+                                   stats=stats)
+        torch.cuda.synchronize()
+        same = torch.equal(out_b[k], out_1)
+        rel_f, rel_e = direct_force_parity(
+            out_b[k, :, :3], cell_energies(out_b[k], plan.n_cells).sum(1),
+            out_p[:, :3], stats)
+        err = float((out_b[k, :, :3] - out_p[:, :3]).abs().max())
+        say(f"[farm-k2] replica {k}: batched slice == single launch "
+            f"bitwise: {same}; vs plain per slot {rel_f:.3e}, per cell "
+            f"{rel_e:.3e} (limits {KERNEL_TOL_F:g}, {KERNEL_TOL_E:g}), "
+            f"max|dF| {err:.4e}; pairs kernel {int(n_b[k])} plain "
+            f"{stats['pairs']}; overflow {int(ovf[k])}")
+        if not same:
+            raise SystemExit(f"farm K2: replica {k}'s slice differs from "
+                             "its single launch")
+        if not (rel_f < KERNEL_TOL_F and rel_e < KERNEL_TOL_E):
+            raise SystemExit(f"farm K2: replica {k} kernel and plain "
+                             "disagree")
+        if int(n_b[k]) != stats["pairs"]:
+            raise SystemExit(f"farm K2: replica {k} counted {int(n_b[k])} "
+                             f"pairs, plain {stats['pairs']}")
+        worst_f, worst_e = max(worst_f, rel_f), max(worst_e, rel_e)
+        err_max = max(err_max, err)
+        pairs.append(stats["pairs"])
+    if len(set(pairs)) == 1:
+        raise SystemExit("farm K2: the replicas did not diverge")
+    launch_b = lambda: direct_force_cuda(plan, center, ghost, couples, beta)
+    launch_1 = lambda: [direct_force_cuda(plan, center[k], ghost[k],
+                                          couples[k], beta)
+                        for k in range(R)]
+    ms_b, ms_1 = graph_ms(launch_b, 20), graph_ms(launch_1, 20)
+    call_ms = cuda_ms(launch_b, 20)
+    plain_ms = cuda_ms(lambda: direct_force_plain(
+        center, ghost, direct.starts, couples, beta, direct.rc2), 1)
+    t_ops = sum(pairs) / 2 * (K2_PAIR_OPS + K2_REACTION_OPS) \
+        / PEAK_FP32 * 1e3
+    nbytes = (center.numel() + ghost.numel() + 2 * R + out_b.numel()) * 4
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    say(f"[farm-k2] batched K2 over {R} replicas: {ms_b:.4f} ms (device; "
+        f"{call_ms:.4f} per eager call), {R} single launches {ms_1:.4f} ms; "
+        f"plain {plain_ms:.2f} ms; bound {max(t_ops, t_bytes):.5f} ms "
+        f"({sum(pairs) // 2} unordered pairs x "
+        f"{K2_PAIR_OPS + K2_REACTION_OPS} FP32 ops, {nbytes} bytes)")
+    # the timed run
+    t0 = time.perf_counter()
+    farm.step(0.002, N_FARM_STEPS)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = DirectForce.launches
+    n_eval = farm.force_evals - evals0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms_farm = elapsed / N_FARM_STEPS * 1e3
+    say(f"[farm-k2] {N_FARM_STEPS} farm steps: {ms_farm:.4f} ms per farm "
+        f"step, {R * N_FARM_STEPS / elapsed:.2f} replica-steps/s, "
+        f"{ms_farm / R:.4f} ms per replica step; K2 launches {launches} "
+        f"= farm force evaluations {n_eval} "
+        f"({launches / (N_FARM_WARM + N_FARM_STEPS):.1f} per farm step); "
+        f"peak device memory {peak:.3f} GiB")
+    if not launches == n_eval == 2 * (N_FARM_WARM + N_FARM_STEPS):
+        raise SystemExit(f"farm K2: launches {launches}, force evaluations "
+                         f"{n_eval}")
+    temps = farm_temperatures(farm, "farm-k2", np)
+    _, _, _, dev_ms, kernels, wall = profile_calls(
+        lambda: farm.step(0.002, FARM_PROFILE_STEPS), torch)
+    say(f"[farm-k2] profiled {FARM_PROFILE_STEPS} farm steps: "
+        f"{kernels / FARM_PROFILE_STEPS:.0f} kernels per farm step, device "
+        f"busy {dev_ms / FARM_PROFILE_STEPS:.3f} of "
+        f"{wall / FARM_PROFILE_STEPS:.3f} ms")
+    entry = dict(
+        name="direct_force_batched", route="cuda",
+        source="molchanica_tpu_torch/csrc/direct_force.cu",
+        replaces="molchanica_tpu/ops/pallas/direct_force.py:388",
+        launches=launches, max_abs_err=err_max, ms=ms_b,
+        plain_ms=plain_ms, call_ms=call_ms, single_ms=ms_1,
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=None, replicas=R, pairs=pairs,
+        site_rel_err=worst_f, cell_rel_err_e=worst_e)
+    return entry, dict(ms_per_farm_step=ms_farm,
+                       replica_steps_per_s=R * N_FARM_STEPS / elapsed,
+                       launches=launches, force_evals=n_eval,
+                       kernels_per_farm_step=kernels / FARM_PROFILE_STEPS,
+                       device_ms_per_farm_step=dev_ms / FARM_PROFILE_STEPS,
+                       peak_gib=peak, temperatures_K=temps.tolist(),
+                       relax=dict(path=r["path"], ends=r["block_ends"],
+                                  kept=r["kept"]))
+
+
+def hydration_farm_phase(asys_h, cfg_h, x_rel, torch, np):
+    """Phase H: the hydration farm. First its gates on phase 13's state
+    (methanol in the 35 A OPC box, MdSim on the cluster backend, no FIRE,
+    velocities drawn at 310 K): one batched force evaluation of a
+    13-replica farm at couples 1 - HYDRATION_LAMBDAS against 13
+    single-replica MdSim evaluations, per site within the card-vs-CPU
+    engine gate; one farm step of two replicas on the card against the
+    same on the CPU with the same noise, their batched forces at the same
+    gate and the positions within dt^2 / m_min x the largest per-site
+    limit. Energies are held to rel 1e-5 of |E| plus the direct space's
+    |e| sums, as md_engine_parity holds the lj and coulomb terms: the
+    float32 sums carry ~1e5 kcal/mol of excluded water pairs that the rest
+    energy subtracts again. The 13-replica farm then steps on, with the
+    kernels per farm step in a profiler window, and must stay finite at
+    100 K < T < 600 K per replica. Then run_sol_sim itself at the
+    reference protocol's width (all 13 windows, its own MdConfig), the
+    step counts cut (H_EQUIL, H_PROD, dhdl_interval H_DHDL_INTERVAL): ms
+    per farm step and per window step, peak memory, the relaxation path,
+    dG and SEM (not gated), each window's mean dH/dlambda beside its
+    float32 FD floor, and every replica finite with the protocol's shape.
+    Its windows are held to window_blowups, not to the 100-600 K band: at
+    these counts its capped warm-ups are 40 + 40 steps and the box still
+    holds the strain FIRE leaves (690-915 K on the card), and an
+    intermediate window may collapse (WINDOW_BLOWUP_K; ROADMAP Queue 3)."""
+    from molchanica_tpu_torch.constants import ACCEL_FACTOR
+    from molchanica_tpu_torch.md.alchemical import HYDRATION_LAMBDAS
+    from molchanica_tpu_torch.md.engine import MdSim
+    from molchanica_tpu_torch.molecules.spec_json import methanol
+    from molchanica_tpu_torch.parallel.replicas import ReplicaFarm
+    from molchanica_tpu_torch.properties import run_sol_sim
+
+    lams = np.asarray(HYDRATION_LAMBDAS)
+    cfg = cfg_h.replace(use_pallas=False, max_init_relaxation_iters=None)
+    # velocities drawn at 310 K by the CPU MdSim, the same on the card
+    cpu = MdSim(asys_h.topology, cfg, x_rel, box_extent=asys_h.box_extent,
+                device="cpu")
+    sims = {"cuda": MdSim(asys_h.topology, cfg, x_rel,
+                          box_extent=asys_h.box_extent,
+                          velocities=cpu.state.velocities.numpy(),
+                          device="cuda"), "cpu": cpu}
+    g = sims["cuda"]
+    farm = ReplicaFarm(g, len(lams), couples=1.0 - lams, seed=TI_SEED)
+    b = farm._chunks[0].b
+    box = g.state.box
+    eps32 = float(np.finfo(np.float32).eps)
+    floors = {}
+    with torch.no_grad():
+        nbr, _ = b.rebuild(b.place(farm.x), box)
+        f_b, (e_b, _) = b.force(farm.x, box, farm._chunks[0].c, nbr)
+        worst_f = worst_e = 0.0
+        for k in range(farm.n):
+            c_k = farm._chunks[0].c[k]
+            f_1, (e_1, terms) = g.force_fn(farm.x[k], box, c_k)
+            g.state = g.state.replace(couple=c_k)
+            scale, e_scale = g.direct_space_scales(farm.x[k])
+            worst_f = max(worst_f, farm_force_gate(f_b[k], f_1, scale))
+            worst_e = max(worst_e, abs(float(e_b[k]) - float(e_1))
+                          / (abs(float(e_1)) + sum(e_scale.values())))
+            floors[round(float(lams[k]), 6)] = eps32 * (
+                sum(abs(float(terms[t])) for t in (
+                    "bond", "angle", "dihedral", "recip", "lj", "coulomb"))
+                + sum(e_scale.values())) / (2.0 * DHDL_H)
+        g.state = g.state.replace(couple=torch.ones_like(g.state.couple))
+    say(f"[farm-h] one batched force of {farm.n} replicas against "
+        f"{farm.n} single evaluations: worst site at {worst_f:.3e} of the "
+        f"limit ({ENGINE_TOL_F:g} max|F| + {ENGINE_TOL_DIRECT:g} direct "
+        f"scale), worst energy {worst_e:.2e} of |E| + the direct |e| sums "
+        f"(limit 1e-5)")
+    if not (worst_f <= 1.0 and worst_e <= 1e-5):
+        raise SystemExit("hydration farm: batched force parts from the "
+                         "single-replica force")
+    # the card farm against the CPU farm: one step of two replicas from
+    # the same state with the same noise; then both farms' batched force
+    # at the CPU farm's positions, per site at the engine gate, and the
+    # positions within dt^2 / m_min times the largest per-site limit of
+    # that gate: one step moves x by dt^2 F / m, and the constraint
+    # projection passes a site's error on to the others of its cluster
+    two = {}
+    noise = torch.randn((2,) + tuple(x_rel.shape),
+                        generator=torch.Generator().manual_seed(5))
+    for dev, sim in sims.items():
+        f2 = ReplicaFarm(sim, 2, couples=[1.0, 0.5], seed=TI_SEED)
+        f2._draws = lambda dev=dev: [noise.to(dev)]
+        f2.step(0.002, 1, record_dhdl=True)
+        two[dev] = f2
+    c2 = {dev: f2._chunks[0] for dev, f2 in two.items()}
+    x_c = two["cpu"].x
+    forces = {}
+    with torch.no_grad():
+        for dev, ch in c2.items():
+            xd = x_c.to(dev)
+            nb2, _ = ch.b.rebuild(ch.b.place(xd), ch.box)
+            f, (e, _) = ch.b.force(xd, ch.box, ch.c, nb2)
+            forces[dev] = (f.cpu(), e.cpu())
+        cpu = sims["cpu"]
+        ratio2 = de2 = 0.0
+        dx_ratio = 0.0
+        m_min = float(cpu.top.masses[cpu.top.dof_mask > 0].min())
+        dx = (two["cuda"].x.cpu() - x_c).abs().amax(dim=-1)
+        for k in range(2):
+            cpu.state = cpu.state.replace(couple=c2["cpu"].c[k])
+            scale, e_scale = cpu.direct_space_scales(x_c[k])
+            fr = forces["cpu"][0][k]
+            ratio2 = max(ratio2, farm_force_gate(forces["cuda"][0][k], fr,
+                                                 scale))
+            de2 = max(de2, abs(float(forces["cuda"][1][k])
+                               - float(forces["cpu"][1][k]))
+                      / (abs(float(forces["cpu"][1][k]))
+                         + sum(e_scale.values())))
+            lim = float((ENGINE_TOL_F * fr.abs().max()
+                         + ENGINE_TOL_DIRECT * scale).max()) \
+                * ACCEL_FACTOR / m_min * 0.002 ** 2
+            dx_ratio = max(dx_ratio, float(dx[k].max()) / lim)
+    say(f"[farm-h] one farm step of 2 replicas, card vs CPU: batched force "
+        f"at the CPU's positions, worst site at {ratio2:.3e} of the limit, "
+        f"energies {de2:.2e} of |E| + the direct |e| sums; positions at "
+        f"{dx_ratio:.3e} of dt^2 / m_min x the largest force limit (max|dx| "
+        f"{float(dx.max()):.3e} A); dH/dl "
+        f"card {np.round(two['cuda'].dhdl_trace, 3).tolist()} CPU "
+        f"{np.round(two['cpu'].dhdl_trace, 3).tolist()} (float32 FD, not "
+        f"gated)")
+    if not (ratio2 <= 1.0 and de2 <= 1e-5 and dx_ratio <= 1.0):
+        raise SystemExit("hydration farm: card and CPU farms disagree")
+    del sims, two, c2
+    farm.step(0.002, 2)
+    _, _, _, dev_ms, kernels, wall = profile_calls(
+        lambda: farm.step(0.002, FARM_PROFILE_STEPS), torch)
+    say(f"[farm-h] profiled {FARM_PROFILE_STEPS} farm steps of "
+        f"{farm.n} replicas: {kernels / FARM_PROFILE_STEPS:.0f} kernels "
+        f"per farm step, device busy {dev_ms / FARM_PROFILE_STEPS:.3f} of "
+        f"{wall / FARM_PROFILE_STEPS:.3f} ms")
+    gate_temps = farm_temperatures(farm, "farm-h", np)
+    del farm, b
+    # run_sol_sim, the entry point
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with recorded_farms(torch) as farms:
+        props = run_sol_sim(methanol(), equil_steps=H_EQUIL,
+                            prod_steps=H_PROD,
+                            dhdl_interval=H_DHDL_INTERVAL, seed=TI_SEED)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rm = props.run_metrics
+    rx = rm["relax"]
+    ms_farm = rm["farm_s"] / rm["farm_steps"] * 1e3
+    n_samples = len(props.windows[0].dhdl_samples)
+    say(f"[farm-h] run_sol_sim(methanol, equil {H_EQUIL}, prod {H_PROD}, "
+        f"dhdl_interval {H_DHDL_INTERVAL}): {rm['n_sites']} sites x "
+        f"{rm['n_replicas']} replicas, {wall_s:.1f} s; relaxation "
+        f"{rx['path']} over {rx['iters']} iterations (block ends "
+        f"{[round(e, 3) for e in rx['block_ends']]}, kept {rx['kept']}, "
+        f"{rx['seconds']:.1f} s); {ms_farm:.4f} ms per farm step, "
+        f"{ms_farm / rm['n_replicas']:.4f} ms per window step over "
+        f"{rm['farm_steps']} farm steps; peak device memory {peak:.3f} GiB")
+    # the float32 FD floor of each window's dH/dlambda (phase F's)
+    for w in props.windows:
+        say(f"[farm-h] lambda={w.lam:.2f} <dH/dl>={w.mean:10.4f} kcal/mol "
+            f"over {len(w.dhdl_samples)} samples; float32 FD floor "
+            f"{floors.get(round(w.lam, 6), float('nan')):.2f} (phase 13's "
+            f"state)")
+    temps = np.asarray(rm["temperatures_K"])
+    say(f"[farm-h] run_sol_sim: T {rm['warmup_temperature_K']:.2f} K after "
+        f"the capped warm-ups; T per replica at the end "
+        f"{np.round(temps, 2).tolist()} K (gated at {WINDOW_BLOWUP_K:g} K "
+        f"at the end points only, see WINDOW_BLOWUP_K), finite="
+        f"{rm['finite']}")
+    collapsed, dg_kept = window_blowups(farms[0], props.windows, "farm-h",
+                                        np)
+    say(f"[farm-h] dG_hydration={props.dg_hydration_kcal:.4f} kcal/mol "
+        f"SEM={props.dg_sem_kcal:.4f} (not gated); contacts "
+        f"{props.mean_n_water_contacts:.2f}, h_bonds "
+        f"{props.mean_n_h_bonds:.2f}")
+    bad = [w.lam for w in props.windows
+           if not np.isfinite(w.dhdl_samples).all()
+           or len(w.dhdl_samples) != n_samples]
+    if bad or not np.isfinite(props.dg_hydration_kcal) \
+            or n_samples != -(-H_PROD // (H_DHDL_INTERVAL + 1)) \
+            or not rm["finite"]:
+        raise SystemExit(f"run_sol_sim: windows {bad}, dG "
+                         f"{props.dg_hydration_kcal}, finite "
+                         f"{rm['finite']}")
+    return dict(batched_force_ratio=worst_f, batched_energy_rel=worst_e,
+                card_cpu_force_ratio=ratio2, card_cpu_energy_rel=de2,
+                card_cpu_dx_ratio=dx_ratio, floors=floors,
+                kernels_per_farm_step=kernels / FARM_PROFILE_STEPS,
+                ms_per_farm_step=ms_farm,
+                ms_per_window_step=ms_farm / rm["n_replicas"],
+                peak_gib=peak, wall_s=wall_s, relax_path=rx["path"],
+                block_ends=rx["block_ends"], kept=rx["kept"],
+                dg=props.dg_hydration_kcal, sem=props.dg_sem_kcal,
+                gate_temperatures_K=gate_temps.tolist(),
+                warmup_temperature_K=rm["warmup_temperature_K"],
+                temperatures_K=temps.tolist(), collapsed=collapsed,
+                dg_decoupling_without_collapsed=dg_kept,
+                windows=[dict(lam=w.lam, mean=w.mean)
+                         for w in props.windows])
+
+
+def logp_phase(torch, np):
+    """Phase I: run_alchemical (LogP) on methanol at its default boxes (35
+    A water, 30 A wet octanol) and LOGP_LAMBDAS, the step counts cut
+    (I_EQUIL, I_PROD): each phase's sites, wall time and farm ms per step;
+    finite results (dG, SEM, logP, every replica's positions), and each
+    phase's windows held to window_blowups, as in phase H (20 + 20 capped
+    warm-up steps here)."""
+    from molchanica_tpu_torch.molecules.spec_json import methanol
+    from molchanica_tpu_torch.properties.logp import (LOGP_LAMBDAS,
+                                                      run_alchemical)
+
+    t0 = time.perf_counter()
+    with recorded_farms(torch) as farms:
+        res = run_alchemical(methanol(), equil_steps=I_EQUIL,
+                             prod_steps=I_PROD, seed=TI_SEED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = dict(logp=res.logp, wall_s=wall)
+    for farm, (tag, ph) in zip(farms, (("water", res.water),
+                                       ("octanol", res.octanol)),
+                               strict=True):
+        rm = ph.run_metrics
+        temps = np.asarray(rm["temperatures_K"])
+        ms = rm["farm_s"] / rm["farm_steps"] * 1e3
+        say(f"[logp] {tag}: {rm['n_sites']} sites x {len(ph.windows)} "
+            f"windows, {ms:.4f} ms per farm step over {rm['farm_steps']}; "
+            f"dG {ph.dg_kcal_mol:.4f} SEM {ph.dg_sem_kcal_mol:.4f}; T per "
+            f"replica {np.round(temps, 1).tolist()} K, finite="
+            f"{rm['finite']}")
+        collapsed, dg_kept = window_blowups(farm, ph.windows,
+                                            f"logp-{tag}", np)
+        if not (rm["finite"] and np.isfinite(ph.dg_kcal_mol)
+                and np.isfinite(ph.dg_sem_kcal_mol)
+                and len(ph.windows) == len(LOGP_LAMBDAS)):
+            raise SystemExit(f"LogP {tag} phase: finite {rm['finite']}, "
+                             f"dG {ph.dg_kcal_mol}, T {temps.tolist()}")
+        out[tag] = dict(n_sites=rm["n_sites"], ms_per_farm_step=ms,
+                        dg=ph.dg_kcal_mol, sem=ph.dg_sem_kcal_mol,
+                        temperatures_K=temps.tolist(), collapsed=collapsed,
+                        dg_without_collapsed=dg_kept)
+    say(f"[logp] logP {res.logp:.4f} (not gated: {I_PROD} production "
+        f"steps), {wall:.1f} s")
+    if not np.isfinite(res.logp):
+        raise SystemExit("LogP: non-finite logP")
+    return out
+
+
+def dryrun_properties_phase(torch, np):
+    """Phase J: the replica-TI dry run with its replica axis cut into two
+    chunks on the card against the unsplit farm (positions within
+    J_SPLIT_TOL A, dH/dlambda samples within J_SPLIT_TOL of their largest
+    magnitude), then the four properties once each at small step counts:
+    the crystal (8 methanol-like copies, dry; J_STEPS steps), the
+    shrinking box (10 copies to 0.7 g/cm^3 in stages of J_STAGE steps,
+    its mixing diagnostics over 3 of them as solutes), the boundary layer
+    (80 slab waters, J_STEPS steps)."""
+    from molchanica_tpu_torch.molecules.spec import MolSpec
+    from molchanica_tpu_torch.parallel.dryrun import dryrun_replica_ti
+    from molchanica_tpu_torch.properties.boundary_layer import \
+        run_boundary_layer_sol_sim
+    from molchanica_tpu_torch.properties.crystal import run_crystal_sim
+    from molchanica_tpu_torch.properties.shrinking_box import \
+        run_shrinking_box_sim
+
+    t0 = time.perf_counter()
+    one = dryrun_replica_ti(J_WINDOWS)
+    two = dryrun_replica_ti(J_WINDOWS, devices=["cuda", "cuda"])
+    dx = float(np.abs(one["x"] - two["x"]).max())
+    s1, s2 = np.asarray(one["samples"]), np.asarray(two["samples"])
+    ds = float(np.abs(s1 - s2).max() / max(np.abs(s1).max(), 1e-30))
+    say(f"[dryrun-ti] {J_WINDOWS} windows, one chunk vs two chunks on the "
+        f"card: max|dx| {dx:.3e} A, dH/dl {ds:.3e} of max|dH/dl| (limits "
+        f"{J_SPLIT_TOL:g}); dG {one['dg']:.4f} / {two['dg']:.4f}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (dx <= J_SPLIT_TOL and ds <= J_SPLIT_TOL
+            and len(two["devices"]) == 2):
+        raise SystemExit("replica-TI dry run: the split farm parts from "
+                         "the unsplit one")
+
+    mol = MolSpec(
+        masses=[12.011, 1.008, 1.008, 1.008, 15.999, 1.008],
+        charges=[0.12, 0.04, 0.04, 0.04, -0.60, 0.36],
+        lj_sigma=[3.4, 2.47, 2.47, 2.47, 3.07, 0.0],
+        lj_eps=[0.11, 0.016, 0.016, 0.016, 0.21, 0.0],
+        positions=np.array([[0.0, 0, 0], [0.36, 1.03, 0],
+                            [0.36, -0.51, 0.89], [0.36, -0.51, -0.89],
+                            [-1.41, 0, 0], [-1.74, -0.9, 0]]),
+        bonds=[(0, 1, 340.0, 1.09), (0, 2, 340.0, 1.09),
+               (0, 3, 340.0, 1.09), (0, 4, 320.0, 1.41),
+               (4, 5, 553.0, 0.96)],
+        angles=[(1, 0, 2, 35.0, 1.911), (1, 0, 3, 35.0, 1.911),
+                (2, 0, 3, 35.0, 1.911), (1, 0, 4, 50.0, 1.911),
+                (2, 0, 4, 50.0, 1.911), (3, 0, 4, 50.0, 1.911),
+                (0, 4, 5, 55.0, 1.894)],
+        hclusters=[(0, [1, 2, 3], [1.09] * 3), (4, [5], [0.96])])
+    out = dict(dryrun_dx=dx, dryrun_dhdl_rel=ds)
+    t0 = time.perf_counter()
+    cry, _ = run_crystal_sim(mol, requested_copies=8, n_steps=J_STEPS,
+                             dt_ps=0.001, cfg_overrides=dict(
+                                 max_init_relaxation_iters=150))
+    t1 = time.perf_counter()
+    say(f"[props] crystal: {cry.copy_count} copies, cohesive "
+        f"{cry.cohesive_energy_kcal_per_mol:.4f} kcal/mol, T "
+        f"{cry.temperature_k:.1f} K, {t1 - t0:.1f} s")
+    shr = run_shrinking_box_sim(
+        [mol] * 10, target_density_g_cm3=0.7, steps_per_stage=J_STAGE,
+        solute_indices=[0, 1, 2], cfg_overrides=dict(
+            max_init_relaxation_iters=100))
+    t2 = time.perf_counter()
+    say(f"[props] shrinking box: density {shr.final_density_g_cm3:.4f} "
+        f"g/cm^3 (target 0.7) after {shr.shrink_steps} shrink steps, T "
+        f"{shr.temperature_k:.1f} K, {t2 - t1:.1f} s")
+    bl = run_boundary_layer_sol_sim(
+        mol, slab_waters=80, box_xy=14.0, box_z=40.0, n_steps=J_STEPS,
+        cfg_overrides=dict(max_init_relaxation_iters=100, lj_cutoff=6.5,
+                           coulomb_cutoff=6.5))
+    t3 = time.perf_counter()
+    say(f"[props] boundary layer: Gibbs surface {bl.gibbs_surface_z_a:.2f} "
+        f"A, solute depth {bl.solute_depth_a:.2f} A, surface affinity "
+        f"{bl.surface_affinity:.2f}, T {bl.temperature_k:.1f} K, "
+        f"{t3 - t2:.1f} s")
+    mix = shr.mixing
+    say(f"[props] mixing diagnostics of the shrinking box (3 solutes): "
+        f"score {mix.score:.4f}, largest cluster fraction "
+        f"{mix.largest_cluster_fraction:.3f}")
+    vals = (cry.cohesive_energy_kcal_per_mol, cry.temperature_k,
+            shr.final_density_g_cm3, shr.temperature_k,
+            bl.temperature_k, bl.surface_affinity, mix.score)
+    if not (np.isfinite(vals).all() and cry.copy_count >= 4
+            and shr.final_density_g_cm3 > 0.6
+            and bl.density_profile.sum() > 0):
+        raise SystemExit(f"properties: {vals}")
+    out.update(crystal_cohesive=cry.cohesive_energy_kcal_per_mol,
+               crystal_s=t1 - t0, shrink_density=shr.final_density_g_cm3,
+               shrink_s=t2 - t1, boundary_affinity=bl.surface_affinity,
+               boundary_s=t3 - t2, mixing_score=mix.score)
+    return out
 
 
 def main():
@@ -2639,7 +3284,20 @@ def main():
     alch_md = alch_md_phase(asys_h, cfg_h, x_rel, v_zero, N_MDD_ALCH_STEPS,
                             torch, np)
 
-    # ---- 30. results ----
+    # ---- 30. G: the screening farm on K2 ----
+    farm_entry, farm_k2 = farm_k2_phase(asys, d, torch, np)
+    entries.append(farm_entry)
+
+    # ---- 31. H: run_sol_sim on the replica farm ----
+    farm_h = hydration_farm_phase(asys_h, cfg_h, x_rel, torch, np)
+
+    # ---- 32. I: LogP at its default boxes ----
+    logp = logp_phase(torch, np)
+
+    # ---- 33. J: the replica-TI dry run and the properties ----
+    props = dryrun_properties_phase(torch, np)
+
+    # ---- 34. results ----
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     if args.profile:
@@ -2659,7 +3317,9 @@ def main():
                            sym_range=sym_range_res, npt=npt_res,
                            k2_grids=k2_grids, mdd_init=mdd_init,
                            clusters=clus, mdd=mdd, mdd_npt=mdd_npt,
-                           vacuum=vac, alch_md=alch_md, kernels=entries),
+                           vacuum=vac, alch_md=alch_md, farm_k2=farm_k2,
+                           farm_h=farm_h, logp=logp, properties=props,
+                           kernels=entries),
                       fh, indent=1)
     say(json.dumps({"kernels": [
         {k: e[k] for k in ("name", "route", "source", "replaces",

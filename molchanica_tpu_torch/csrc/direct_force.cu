@@ -54,7 +54,9 @@
 //   a second kernel sums a cell's parts in part order and writes the half
 //   sums. The output is the same bits on every launch.
 //
-// Layouts:
+// Layouts, per replica (every array has a leading replica axis of n_rep;
+// the grid's z axis is the replica, so one launch runs n_rep independent
+// grids of the same plan, the counterpart of vmap over the pallas_call):
 //   center [n_cells C, 8] f32 rows: x, y, z (wrapped into [0, box)), q,
 //          sigma, eps, couple mask, valid (0 = empty slot)
 //   ghost  [8, G] f32 property-major, G = gx gy gz C, positions shifted by
@@ -116,6 +118,17 @@ direct_force_kernel(const float* __restrict__ center,
 
   const int p = blockIdx.x;
   const int part = blockIdx.y;
+  // replica blockIdx.z: its arrays follow the previous replica's
+  {
+    const size_t r = blockIdx.z;
+    const size_t S = (size_t)gridDim.x * cap;
+    center += r * S * 8;
+    ghost += r * 8 * (size_t)G;
+    params += r * 2;
+    out += r * S * 4;
+    e_part += r * (size_t)gridDim.x * gridDim.y * 2;
+    if (counts != nullptr) counts += r;
+  }
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int wp = t >> 5;
@@ -406,12 +419,13 @@ direct_force_kernel(const float* __restrict__ center,
 }
 
 // A cell's half-summed energies: its parts' sums in part order, into
-// column 3 of the cell's rows 0 (LJ) and 1 (Coulomb).
+// column 3 of the cell's rows 0 (LJ) and 1 (Coulomb); the cells of every
+// replica, one after the other.
 __global__ void __launch_bounds__(256)
 direct_force_energy(const double* __restrict__ e_part, int n_cells,
-                    int parts, int cap, float* __restrict__ out) {
+                    int n_rep, int parts, int cap, float* __restrict__ out) {
   const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= 2 * n_cells) return;
+  if (m >= 2 * n_cells * n_rep) return;
   const int p = m >> 1, term = m & 1;
   const double* e = e_part + (size_t)p * parts * 2 + term;
   double acc = e[0];
@@ -421,29 +435,32 @@ direct_force_energy(const double* __restrict__ e_part, int n_cells,
 
 }  // namespace
 
-// Launches the pair kernel and the energy sum on `stream`, allocates
-// nothing, returns cudaGetLastError() (or cudaErrorInvalidValue for
-// arguments it does not take). scratch holds n_cells * cap / 32 * 2
-// doubles; counts is null or one int64.
-extern "C" int direct_force_launch(int n_cells, int cap, int ncy, int ncz,
-                                   int gy, int gz, int G, float rc2,
+// Launches the pair kernel and the energy sum on `stream` for n_rep
+// replicas of one grid (a leading replica axis on center, ghost, params,
+// out, scratch and counts; the grid's z axis), allocates nothing, returns
+// cudaGetLastError() (or cudaErrorInvalidValue for arguments it does not
+// take). scratch holds n_rep * n_cells * cap / 32 * 2 doubles; counts is
+// null or n_rep int64.
+extern "C" int direct_force_launch(int n_rep, int n_cells, int cap, int ncy,
+                                   int ncz, int gy, int gz, int G, float rc2,
                                    const void* center, const void* ghost,
                                    const void* params, void* out,
                                    void* scratch, void* counts,
                                    void* stream) {
-  if (cap <= 0 || cap % PART_I != 0 || cap > MAX_CAP || scratch == nullptr)
+  if (cap <= 0 || cap % PART_I != 0 || cap > MAX_CAP || scratch == nullptr
+      || n_rep <= 0 || n_rep > 65535)
     return (int)cudaErrorInvalidValue;
   if (n_cells <= 0) return (int)cudaGetLastError();
   const int parts = cap / PART_I;
-  direct_force_kernel<<<dim3(n_cells, parts), THREADS, 0,
+  direct_force_kernel<<<dim3(n_cells, parts, n_rep), THREADS, 0,
                         (cudaStream_t)stream>>>(
       (const float*)center, (const float*)ghost, G, (const float*)params,
       cap, ncy, ncz, gy, gz, rc2, (float*)out, (double*)scratch,
       (unsigned long long*)counts);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  direct_force_energy<<<(2 * n_cells + 255) / 256, 256, 0,
+  direct_force_energy<<<(2 * n_cells * n_rep + 255) / 256, 256, 0,
                         (cudaStream_t)stream>>>(
-      (const double*)scratch, n_cells, parts, cap, (float*)out);
+      (const double*)scratch, n_cells, n_rep, parts, cap, (float*)out);
   return (int)cudaGetLastError();
 }

@@ -30,7 +30,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of each source's C entry point (each returns a cudaError_t)
 ENTRIES = {
     "colpair_launch": [_I] * 10 + [_P] * 13,
-    "direct_force_launch": [_I] * 7 + [_F] + [_P] * 7,
+    "direct_force_launch": [_I] * 8 + [_F] + [_P] * 7,
     "probe_launch": [_I] * 3 + [_P] * 7,
 }
 

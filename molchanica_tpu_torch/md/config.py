@@ -189,7 +189,7 @@ class MdConfig:
     cell_capacity_factor: float = 1.7 # reference knob; the cell-grid plan
                                       # sets capacity from occupancy
     # MdSim's direct space: the cell-grid kernel (ops/direct_force.py) when
-    # True; the other backends ("auto" = clusters, "window") are not ported
+    # True, else the cluster-pair backend ("auto") or the dense window
     use_pallas: bool = False
     direct_backend: str = "auto"
     # torch.profiler output directory: FastSim.run traces its steps and

@@ -49,10 +49,13 @@ def _ewald_self_energy(top, couple, beta):
 
 def make_energy_fn(top, cfg, method: str = "allpairs", pme_recip_fn=None,
                    direct_space_fn=None):
-    """energy(x, box, couple) -> (E_total, terms).
+    """energy(x, box, couple, recip=None) -> (E_total, terms).
 
-    "cells_pme" takes direct_space_fn(x, box, couple, beta) -> (e_lj, e_c,
-    overflow) (ops/cells.py::make_cell_direct_space_fn) and pme_recip_fn;
+    The PME methods compute the reciprocal energy with pme_recip_fn, or
+    take it as `recip` where the caller computed it (the replica farm
+    batches PME outside vmap). "cells_pme" takes direct_space_fn(x, box,
+    couple, beta) -> (e_lj, e_c, overflow)
+    (ops/cells.py::make_cell_direct_space_fn) and pme_recip_fn;
     "pme_rest" is reciprocal + self + erf exclusion correction, minus the
     kernel-formula contribution of excluded and 1-4 pairs (the direct-force
     backends add every close pair). With coupled atoms, the PME methods add
@@ -72,7 +75,7 @@ def make_energy_fn(top, cfg, method: str = "allpairs", pme_recip_fn=None,
     ewald_beta = ewald_beta_for(cfg.coulomb_cutoff, cfg.ewald_rtol)
     rc2 = max(cfg.lj_cutoff, cfg.coulomb_cutoff) ** 2
 
-    def energy(x, box, couple):
+    def energy(x, box, couple, recip=None):
         x = apply_virtual_sites(x, top)
         e_bonded, bterms = bonded_energy(x, box, top, ov)
         zero = torch.zeros((), dtype=x.dtype, device=x.device)
@@ -107,7 +110,8 @@ def make_energy_fn(top, cfg, method: str = "allpairs", pme_recip_fn=None,
             if ov.coulomb_disabled:
                 e_c = torch.zeros_like(e_c)
             if not (ov.long_range_recip_disabled or ov.coulomb_disabled):
-                e_recip = pme_recip_fn(x, box, couple)
+                e_recip = pme_recip_fn(x, box, couple) if recip is None \
+                    else recip
                 e_self = _ewald_self_energy(top, couple, ewald_beta)
                 e_c = e_c + nb.ewald_exclusion_correction(x, box, top, couple,
                                                           ewald_beta)

@@ -28,14 +28,16 @@ One call of `step(dt, n)` is a Python loop over exactly n steps:
   after the loop: the last block's barostat scaling, COM-drift removal,
       the final force, kinetic energy and dH/dlambda
 
-Differences from the reference (ROADMAP Queue 3): it splits a step call
-into steps_per_chunk chunks and removes the COM drift per chunk (`run`
-keeps that chunking, so it matches); it rounds a chunk down to a multiple
-of k on the neighbour-list backends; it sorts and bins the M sites at
-stale positions, while the port places them before every rebuild; it
-applies the barostat only on its scan-chunk path, once per chunk on the
-allpairs and window methods, while the port applies it per block of k
-steps everywhere. Where no atom crossed a face, n is a multiple of k and
+A step call of more than steps_per_chunk steps runs as calls of at most
+steps_per_chunk (the reference's chunking), so the COM drift is removed
+once per chunk.
+
+Differences from the reference (ROADMAP Queue 3): it rounds a chunk down
+to a multiple of k on the neighbour-list backends; it sorts and bins the
+M sites at stale positions, while the port places them before every
+rebuild; it applies the barostat only on its scan-chunk path, once per
+chunk on the allpairs and window methods, while the port applies it per
+block of k steps everywhere. Where no atom crossed a face, n is a multiple of k and
 the M rows were placed, the two give the same numbers.
 
 An overflowing rebuild (a cell past its capacity, a cluster row past M)
@@ -44,6 +46,7 @@ clusters with the list width x 1.5) and retries, up to 3 attempts.
 """
 from __future__ import annotations
 
+import math
 import time
 from typing import Callable, Optional
 
@@ -87,6 +90,29 @@ class ClusterOverflowError(RuntimeError):
 
 def _np(t):
     return t.detach().cpu().numpy()
+
+
+def add_direct_terms(e_rest, terms, e_lj, e_c, ovf=None):
+    """(E, terms) of the whole energy from the rest energy ("pme_rest")
+    and its terms plus the direct space's LJ and Coulomb sums and its
+    overflow (None: none). Elementwise, so the same with a leading replica
+    axis."""
+    e_tot = e_rest + e_lj + e_c
+    terms = dict(terms)
+    terms["lj"] = terms["lj"] + e_lj
+    terms["coulomb"] = terms["coulomb"] + e_c
+    terms["energy_potential"] = e_tot
+    terms["energy_potential_nonbonded"] = (
+        terms["energy_potential_nonbonded"] + e_lj + e_c)
+    if ovf is not None:
+        terms["cell_overflow"] = terms["cell_overflow"] + ovf
+    return e_tot, terms
+
+
+def relax_check(e0: float, e: float) -> bool:
+    """The reference's acceptance of a relaxed state: finite and at most
+    max(1% |E0|, 10 kcal/mol) above the start energy E0."""
+    return math.isfinite(e) and e <= e0 + max(0.01 * abs(e0), 10.0)
 
 
 class MdSim:
@@ -172,36 +198,68 @@ class MdSim:
 
     # ------------------------------------------------------------------
     def _relax(self, n_iters):
-        """FIRE over n_iters force evaluations from the current state and
-        one more at its end, then the M sites placed and the neighbour plan
-        remade from the relaxed geometry (a clash-inflated occupancy would
-        otherwise hold for the whole run). The reference checks the end
-        energy against E0 + max(1% |E0|, 10 kcal/mol) and, failing it,
-        reruns the same FIRE on the host, which ends where it did; the port
-        keeps the lowest-energy state FIRE evaluated instead (on config 3
-        FIRE climbs from -64,277 to +1,362 kcal/mol: ROADMAP Queue 3).
-        `relax_log` keeps the energies, the state kept and the wall
-        time."""
+        """FIRE at construction in the reference's block structure
+        (molchanica_tpu's MdSim._relax_positions): a first block of
+        min(n, 100) iterations from fresh FIRE state and one evaluation at
+        its end; if that end passes `relax_check` against E0 (the first
+        evaluation), ceil(n / block) - 1 more blocks of the same length,
+        each from the last block's positions with v = 0 and dt and alpha
+        reset, each closed by one evaluation; otherwise one loop of n
+        iterations from the start and one evaluation at its end. Then the M
+        sites are placed and the neighbour plan remade from the relaxed
+        geometry (a clash-inflated occupancy would otherwise hold for the
+        whole run).
+
+        One departure (ROADMAP Queue 3): where the path that ran ends
+        outside `relax_check` too, the reference hands its engine that
+        state; the port keeps the lowest-energy state that path evaluated.
+        `relax_log` records the path ("blocks" or "fallback"), each block's
+        end energy, the lowest energy, the state kept ("end" or "lowest")
+        and the wall time."""
         s = self.state
         t0 = time.perf_counter()
-        energies, best = [], {}
+        block = min(n_iters, 100)
+        n_blocks = max(1, -(-n_iters // block))
+        energies = []
+
+        def run(x, n):
+            best = {}
+            x, e_last = fire_minimize(
+                self.force_fn, x, s.box, s.couple, self.top.dof_mask,
+                n_steps=n, constrain_positions=self._cp, energies=energies,
+                best=best)
+            e_end = self.force_fn(x, s.box, s.couple)[1][0]
+            lowest = (best["e"], best["x"])
+            if e_end < lowest[0]:
+                lowest = (e_end, x)
+            return x, float(e_end), float(e_last), lowest
+
+        def lower(a, b):
+            return a if a[0] <= b[0] else b
+
         with torch.no_grad():
-            x_min, e_last = fire_minimize(
-                self.force_fn, s.positions, s.box, s.couple,
-                self.top.dof_mask, n_steps=n_iters,
-                constrain_positions=self._cp, energies=energies, best=best)
-            e_end = float(self.force_fn(x_min, s.box, s.couple)[1][0])
+            x, e_end, e_last, lowest = run(s.positions, block)
             e0 = float(energies[0])
+            ends = [e_end]
+            path = "blocks"
+            if relax_check(e0, e_end):
+                for _ in range(n_blocks - 1):
+                    x, e_end, e_last, low = run(x, block)
+                    ends.append(e_end)
+                    lowest = lower(lowest, low)
+            else:
+                path = "fallback"
+                x, e_end, e_last, lowest = run(s.positions, n_iters)
             kept = "end"
-            if not e_end <= e0 + max(0.01 * abs(e0), 10.0):
-                x_min, kept = best["x"], "lowest"
+            if not relax_check(e0, e_end):
+                x, kept = lowest[1], "lowest"
             self.state = s.replace(
-                positions=apply_virtual_sites(x_min, self.top))
+                positions=apply_virtual_sites(x, self.top))
         self.rebuild_neighbor_plan()
-        self.relax_log = dict(iters=n_iters, e_first=e0,
-                              e_last=float(e_last), e_end=e_end,
-                              e_lowest=float(best["e"]), kept=kept,
-                              seconds=time.perf_counter() - t0)
+        self.relax_log = dict(iters=n_iters, path=path, block=block,
+                              block_ends=ends, e_first=e0, e_last=e_last,
+                              e_end=e_end, e_lowest=float(lowest[0]),
+                              kept=kept, seconds=time.perf_counter() - t0)
 
     def rebuild_neighbor_plan(self):
         """Re-plan the neighbour structure from the current positions (cell
@@ -214,9 +272,13 @@ class MdSim:
         dhdl_fn, and the neighbour-state triple the step loop drives:
         _rebuild_nbr(x, box) -> (nbr, overflow or None), _force_nbr(x, box,
         couple, nbr) and _energy_nbr(x, box, couple, nbr) -> E (the
-        differentiable energy the barostat takes dE/ds of)."""
+        differentiable energy the barostat takes dE/ds of). The replica
+        farm (parallel/replicas.py) batches the pieces kept here: _rebuild,
+        _direct, _beta, _recip, _spread and _plan_x0 (the positions the
+        plan was made from)."""
         top, cfg = self.top, self.cfg
         self._plan = None
+        self._plan_x0 = x0_np
         self._nbr_backend = None
         if self.method != "cells_pme":
             energy_fn = make_energy_fn(top, cfg, self.method)
@@ -322,6 +384,8 @@ class MdSim:
             f = f.index_add(0, vs_h1, vs_w * fm)
             return f.index_add(0, vs_h2, vs_w * fm)
 
+        self._spread = spread_vsite_forces
+
         @torch.no_grad()
         def force_nbr(x, box, couple, nbr):
             self.force_evals += 1
@@ -329,15 +393,7 @@ class MdSim:
             f1, e_lj, e_c, ovf_d = direct_nbr(x, box, couple, nbr)
             f1 = spread_vsite_forces(f1)
             f2, (e_rest, terms) = rest_fg(x, box, couple)
-            e_tot = e_rest + e_lj + e_c
-            terms = dict(terms)
-            terms["lj"] = terms["lj"] + e_lj
-            terms["coulomb"] = terms["coulomb"] + e_c
-            terms["energy_potential"] = e_tot
-            terms["energy_potential_nonbonded"] = (
-                terms["energy_potential_nonbonded"] + e_lj + e_c)
-            terms["cell_overflow"] = terms["cell_overflow"] + ovf_d
-            return f1 + f2, (e_tot, terms)
+            return f1 + f2, add_direct_terms(e_rest, terms, e_lj, e_c, ovf_d)
 
         @torch.no_grad()
         def force_fn(x, box, couple):
@@ -494,9 +550,22 @@ class MdSim:
     def step(self, dt_ps: float, n_steps: int = 1, record_energy=False,
              force_cap=None):
         """Advance exactly n_steps of dt_ps (ps). `force_cap` clamps
-        per-atom forces (kcal/mol/A). On an overflow the call restarts
-        from its first state after a replan (the cluster list 1.5x wider),
-        up to 3 attempts."""
+        per-atom forces (kcal/mol/A). A call of more than steps_per_chunk
+        steps runs as calls of at most steps_per_chunk, each ending as a
+        call does (COM-drift removal, the final evaluation), as the
+        reference chunks it. On an overflow a call restarts from its first
+        state after a replan (the cluster list 1.5x wider), up to 3
+        attempts."""
+        spc = self.cfg.steps_per_chunk
+        if n_steps > spc:
+            energies, done = [], 0
+            while done < n_steps:
+                todo = min(spc, n_steps - done)
+                e = self.step(dt_ps, todo, record_energy, force_cap)
+                if e is not None:
+                    energies.append(e)
+                done += todo
+            return torch.cat(energies) if energies else None
         t0 = time.perf_counter()
         try:
             with torch.no_grad():

@@ -43,7 +43,9 @@ def csvr_draws(generator, ndof: int, dtype, device):
 def csvr_rescale(velocities, masses, dof_mask, temp_target, dt, tau,
                  n_constraints, r1, s):
     """Bussi CSVR stochastic velocity rescaling with the draws (r1, s) of
-    `csvr_draws`; returns the scaled velocities.
+    `csvr_draws`; returns the scaled velocities. With a leading replica
+    axis (velocities [R, N, 3], r1 and s [R]) each replica is rescaled by
+    its own kinetic energy.
 
     alpha^2 = c + (1-c) (KEbar/(ndof KE)) (R1^2 + S)
               + 2 R1 sqrt(c (1-c) KEbar/(ndof KE)),
@@ -56,7 +58,7 @@ def csvr_rescale(velocities, masses, dof_mask, temp_target, dt, tau,
     alpha2 = c + (1.0 - c) * ratio * (r1 * r1 + s) \
         + 2.0 * r1 * torch.sqrt(c * (1.0 - c) * ratio)
     alpha = torch.sqrt(torch.clamp_min(alpha2, 1e-12))
-    return velocities * alpha
+    return velocities * alpha[..., None, None]
 
 
 def make_integrator_step(

@@ -36,9 +36,10 @@ class MdState:
 
 
 def kinetic_energy(velocities, masses, dof_mask):
-    """0.5 m v^2 over integrated dofs, in kcal/mol."""
+    """0.5 m v^2 over integrated dofs, in kcal/mol (per replica, [R], for
+    velocities [R, N, 3])."""
     ke = 0.5 * torch.sum(masses * dof_mask
-                         * torch.sum(velocities ** 2, dim=-1))
+                         * torch.sum(velocities ** 2, dim=-1), dim=-1)
     return ke / ACCEL_FACTOR
 
 

@@ -108,8 +108,8 @@ def bin_atoms(x, box, atom_mask, nc, capacity):
     flat = torch.where(ok, cell_sorted * capacity + rank,
                        torch.full_like(rank, n_cells * capacity))
     grid = torch.full((n_cells * capacity + 1,), -1, dtype=torch.int64,
-                      device=dev)
-    grid[flat] = torch.where(ok, order, torch.full_like(order, -1))
+                      device=dev).index_put(
+        (flat,), torch.where(ok, order, torch.full_like(order, -1)))
     return grid[:-1].reshape(n_cells, capacity), overflow
 
 

@@ -128,11 +128,13 @@ def make_cluster_rebuild_fn(plan: ClusterPlan, top):
                                          dtype=xc.dtype, device=dev)])
         v_p = torch.cat([valid, torch.zeros((pad_c, CL), dtype=torch.bool,
                                             device=dev)])
-        hits = torch.zeros((blk * n_blk, blk * n_blk), dtype=torch.bool,
-                           device=dev)
+        # the tiles are joined out of place, so that torch.func.vmap can
+        # batch the rebuild over replicas (parallel/replicas.py)
+        rows = []
         for bi in range(n_blk):
             si = bi * blk
             xi, vi = xc_p[si:si + blk], v_p[si:si + blk]
+            row = []
             for bj in range(n_blk):
                 sj = bj * blk
                 xj, vj = xc_p[sj:sj + blk], v_p[sj:sj + blk]
@@ -141,7 +143,9 @@ def make_cluster_rebuild_fn(plan: ClusterPlan, top):
                 r2 = torch.sum(dd * dd, dim=-1)
                 ok = ((r2 < rl2) & vi[:, None, :, None]
                       & vj[None, :, None, :])
-                hits[si:si + blk, sj:sj + blk] = ok.any(dim=3).any(dim=2)
+                row.append(ok.any(dim=3).any(dim=2))
+            rows.append(torch.cat(row, dim=1))
+        hits = torch.cat(rows, dim=0)
         pairs = hits[:ncl, :ncl] & cand
         # compact each row's neighbours into [NC, M], in cluster order
         counts = pairs.sum(dim=1)
@@ -277,14 +281,14 @@ def make_cluster_direct_force_fn(top, cfg, plan: ClusterPlan):
                 e_abs_lj += 0.5 * float(torch.abs(el.detach()).sum())
                 e_abs_c += 0.5 * float(torch.abs(ec.detach()).sum())
         f_atoms = None
+        # unsort: sorted slot s holds atom order[s] (out of place, for vmap)
         if want_force:
-            # unsort: sorted slot s holds atom order[s]
-            f_atoms = torch.zeros((n, 3), dtype=dt, device=dev)
-            f_atoms[order] = torch.cat(f_parts)[:ncl].reshape(n, 3)
+            f_atoms = torch.zeros((n, 3), dtype=dt, device=dev).index_put(
+                (order,), torch.cat(f_parts)[:ncl].reshape(n, 3))
             f_atoms = f_atoms * top.atom_mask.to(dt)[:, None]
         if stats is not None:
-            a = torch.zeros((n,), dtype=dt, device=dev)
-            a[order] = torch.cat(a_parts)[:ncl].reshape(n)
+            a = torch.zeros((n,), dtype=dt, device=dev).index_put(
+                (order,), torch.cat(a_parts)[:ncl].reshape(n))
             stats.update(f_abs=a * top.atom_mask.to(dt), e_abs_lj=e_abs_lj,
                          e_abs_c=e_abs_c)
         return (f_atoms, 0.5 * e_lj, 0.5 * e_c,

@@ -141,13 +141,15 @@ def make_rebuild_fn(plan: WindowPlan, atom_mask):
         ok = (rank < cap) & real
         slot_of_sorted = torch.where(ok, cell_sorted * cap + rank,
                                      torch.full_like(rank, n_cells * cap))
+        # scatters out of place, so that torch.func.vmap can batch the
+        # rebuild over replicas (parallel/replicas.py)
         slot_atom = torch.full((n_cells * cap + 1,), -1, dtype=torch.int64,
-                               device=dev)
-        slot_atom[slot_of_sorted] = torch.where(ok, order,
-                                                torch.full_like(order, -1))
-        inv_slot = torch.zeros((n,), dtype=torch.int64, device=dev)
-        inv_slot[order] = torch.where(ok, slot_of_sorted,
-                                      torch.zeros_like(slot_of_sorted))
+                               device=dev).index_put(
+            (slot_of_sorted,), torch.where(ok, order,
+                                           torch.full_like(order, -1)))
+        inv_slot = torch.zeros((n,), dtype=torch.int64, device=dev).index_put(
+            (order,), torch.where(ok, slot_of_sorted,
+                                  torch.zeros_like(slot_of_sorted)))
         return slot_atom[:-1], inv_slot, overflow
 
     return rebuild
@@ -263,7 +265,18 @@ def direct_force_plain(center, ghost, starts, couple, beta, rc2,
     |e_lj| and of |e_c| over all pairs (the float32 scale of the two energy
     totals, which carry excluded pairs that the caller subtracts again).
     With the key "keys" in `stats` it also receives "keys", the sorted
-    int64 keys center slot * G + ghost slot of the evaluated pairs."""
+    int64 keys center slot * G + ghost slot of the evaluated pairs.
+
+    With a leading replica axis (center [R, n_cells C, 8], ghost [R, 8,
+    G], couple a scalar or [R]) it returns [R, n_cells C, 4], each replica
+    its own single-replica result (no `stats`)."""
+    if center.dim() == 3:
+        if stats is not None:
+            raise ValueError("direct_force_plain: stats take one replica")
+        cpl = torch.as_tensor(couple).expand(center.shape[0])
+        return torch.stack([
+            direct_force_plain(c, g, starts, cp, beta, rc2)
+            for c, g, cp in zip(center, ghost, cpl)])
     S = center.shape[0]
     n_cells, n_slab = starts.shape
     cap = S // n_cells
@@ -442,8 +455,9 @@ def direct_force_parity(f, e_cell, f_ref, stats):
 
 
 def cell_energies(out, n_cells):
-    """[n_cells, 2] (e_lj, e_c) half sums from a kernel output [S, 4]."""
-    return out[:, 3].reshape(n_cells, -1)[:, :2]
+    """[n_cells, 2] (e_lj, e_c) half sums from a kernel output [S, 4] (with
+    a leading replica axis, [R, n_cells, 2] from [R, S, 4])."""
+    return out[..., 3].reshape(out.shape[:-2] + (n_cells, -1))[..., :2]
 
 
 # ---------------------------------------------------------------------------
@@ -476,6 +490,12 @@ class DirectForce:
     (csrc/direct_force.cu) for CUDA tensors or `direct_force_plain` for
     CPU tensors. `DirectForce.launches` counts the kernel's launches across
     instances. Overflow is detected at rebuild; the returned one is 0.
+
+    Every argument but box and beta may carry a leading replica axis (x
+    [R, N, 3], couple [R], slot_atom [R, n_cells C], inv_slot and shift
+    likewise): then R independent grids of one plan run as one launch
+    (the kernel's grid z axis), F is [R, N, 3] and the energies [R]. A
+    launch counts once, whatever R.
     """
     launches = 0
 
@@ -494,23 +514,30 @@ class DirectForce:
         self.starts = slab_starts(plan, dev)
 
     def inputs(self, x, box, slot_atom, shift=None):
-        """(center [n_cells C, 8], ghost [8, G]) for the kernel."""
+        """(center [n_cells C, 8], ghost [8, G]) for the kernel; with a
+        leading replica axis, [R, n_cells C, 8] and [R, 8, G]."""
         n = self.plan.n_atoms
         x = x.to(torch.float32)
         x = x - (image_shift(x, box) if shift is None else shift)
-        rows = torch.cat([torch.cat([x, self.props], dim=1),
-                          torch.zeros((1, 8), dtype=x.dtype,
-                                      device=x.device)])
-        center = rows[torch.where(slot_atom < 0,
-                                  torch.full_like(slot_atom, n), slot_atom)]
-        ghost = center[self.gsrc]
-        ghost = torch.cat([ghost[:, :3] + self.gshift * box, ghost[:, 3:]],
-                          dim=1)
-        return center, ghost.T.contiguous()
+        lead = x.shape[:-2]
+        rows = torch.cat([
+            torch.cat([x, self.props.expand(lead + self.props.shape)],
+                      dim=-1),
+            torch.zeros(lead + (1, 8), dtype=x.dtype, device=x.device)],
+            dim=-2)
+        idx = torch.where(slot_atom < 0, torch.full_like(slot_atom, n),
+                          slot_atom)
+        center = torch.gather(rows, -2, idx[..., None].expand(
+            idx.shape + (8,)))
+        ghost = center[..., self.gsrc, :]
+        ghost = torch.cat([ghost[..., :3] + self.gshift * box,
+                           ghost[..., 3:]], dim=-1)
+        return center, ghost.transpose(-1, -2).contiguous()
 
     def kernel(self, center, ghost, couple, beta):
-        """out [n_cells C, 4] from the CUDA kernel (CUDA tensors, counted)
-        or the plain version (CPU tensors)."""
+        """out [n_cells C, 4] (or [R, n_cells C, 4]) from the CUDA kernel
+        (CUDA tensors, one launch counted) or the plain version (CPU
+        tensors)."""
         if center.device.type == "cpu":
             return direct_force_plain(center, ghost, self.starts, couple,
                                       beta, self.rc2)
@@ -522,21 +549,24 @@ class DirectForce:
                  shift=None):
         center, ghost = self.inputs(x, box, slot_atom, shift)
         out = self.kernel(center, ghost, couple, beta)
-        f_atoms = out[inv_slot, :3] * self.atom_mask[:, None]
+        f_atoms = torch.gather(out[..., :3], -2, inv_slot[..., None].expand(
+            inv_slot.shape + (3,))) * self.atom_mask[:, None]
         e = cell_energies(out, self.plan.n_cells)
         zero = torch.zeros((), dtype=torch.int64, device=out.device)
-        return f_atoms, e[:, 0].sum(), e[:, 1].sum(), zero
+        return f_atoms, e[..., 0].sum(-1), e[..., 1].sum(-1), zero
 
 
 def direct_force_cuda(plan: WindowPlan, center, ghost, couple, beta,
                       counts=None):
     """Launch csrc/direct_force.cu on the current stream: out [n_cells C,
-    4], laid out as direct_force_plain's. `counts`, a one-element int64
-    tensor on the card, gets the kernel's count of the pairs that passed
-    its cutoff test added. With couple and beta device scalars the launch
-    copies nothing from the host, so it can be captured in a CUDA graph; a
-    Python float is copied at every call. Counts no launch; `DirectForce`
-    does."""
+    4], laid out as direct_force_plain's. With a leading replica axis
+    (center [R, n_cells C, 8], ghost [R, 8, G], couple and beta scalars or
+    [R]) one launch runs the R grids and returns [R, n_cells C, 4].
+    `counts`, an int64 tensor on the card with one element per replica,
+    gets the kernel's count of the pairs that passed its cutoff test added.
+    With couple and beta on the card the launch copies nothing from the
+    host, so it can be captured in a CUDA graph; a Python float is copied
+    at every call. Counts no launch; `DirectForce` does."""
     import ctypes
 
     from ..cuda_build import load_library
@@ -546,33 +576,38 @@ def direct_force_cuda(plan: WindowPlan, center, ghost, couple, beta,
     S = plan.n_cells * cap
     gx, gy, gz = plan.ghost_dims
     G = gx * gy * gz * cap
-    if center.shape != (S, 8) or ghost.shape != (8, G):
+    lead = tuple(center.shape[:-2])
+    R = center.shape[0] if lead else 1
+    if len(lead) > 1 or center.shape != lead + (S, 8) \
+            or ghost.shape != lead + (8, G):
         raise ValueError(f"direct_force: center {tuple(center.shape)} / "
-                         f"ghost {tuple(ghost.shape)}: want [{S}, 8] / "
-                         f"[8, {G}]")
-    if cap % PART_I or cap > 256 or plan.halo != 1 or G >= 2 ** 31:
+                         f"ghost {tuple(ghost.shape)}: want [R,] [{S}, 8] "
+                         f"/ [R,] [8, {G}]")
+    if cap % PART_I or cap > 256 or plan.halo != 1 or G >= 2 ** 31 \
+            or not 0 < R < 65536:
         raise ValueError(f"direct_force: capacity must be a multiple of "
                          f"{PART_I} up to 256, halo 1, fewer than 2^31 "
-                         f"ghost slots")
+                         f"ghost slots, 1 to 65,535 replicas")
     params = torch.stack([torch.as_tensor(v, dtype=torch.float32,
-                                          device=dev).reshape(())
-                          for v in (couple, beta)])
+                                          device=dev).expand(R)
+                          for v in (couple, beta)], dim=1).contiguous()
     for name, t in (("center", center), ("ghost", ghost),
                     ("params", params)):
         if t.device != dev or t.dtype != torch.float32 \
                 or not t.is_contiguous():
             raise ValueError(f"direct_force: {name} must be a contiguous "
                              f"float32 tensor on {dev}")
-    if counts is not None and (counts.device != dev or counts.numel() != 1
-                               or counts.dtype != torch.int64):
-        raise ValueError(f"direct_force: counts must be one int64 on {dev}")
+    if counts is not None and (counts.device != dev or counts.numel() != R
+                               or counts.dtype != torch.int64
+                               or not counts.is_contiguous()):
+        raise ValueError(f"direct_force: counts must be {R} int64 on {dev}")
     lib = load_library()
-    out = torch.empty((S, 4), dtype=torch.float32, device=dev)
-    scratch = torch.empty((plan.n_cells * (cap // PART_I) * 2,),
+    out = torch.empty(lead + (S, 4), dtype=torch.float32, device=dev)
+    scratch = torch.empty((R * plan.n_cells * (cap // PART_I) * 2,),
                           dtype=torch.float64, device=dev)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     err = lib.direct_force_launch(
-        plan.n_cells, cap, plan.nc[1], plan.nc[2], gy, gz, G,
+        R, plan.n_cells, cap, plan.nc[1], plan.nc[2], gy, gz, G,
         ctypes.c_float(float(plan.cutoff) ** 2), ptr(center), ptr(ghost),
         ptr(params), ptr(out), ptr(scratch),
         ctypes.c_void_p(None) if counts is None else ptr(counts),

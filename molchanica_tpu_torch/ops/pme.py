@@ -43,7 +43,8 @@ def make_pme_recip_fn(top, cfg, box_extent, device=None):
     """recip(x, box, couple) -> E_recip, differentiable in x and the box:
     order-6 SPME (ops/pme3.py) on cfg.pme_grid or default_grid(box), with
     the coupled atoms' charges scaled by couple, in cfg.dtype. `device`
-    None means the CUDA card. The mesh shape is `recip.grid`."""
+    None means the CUDA card. The mesh shape is `recip.grid`;
+    `recip.batched(x, box, couples)` takes a leading replica axis."""
     from ..device import resolve_device
     from .pme3 import make_pme3_recip_fn
 
@@ -59,5 +60,11 @@ def make_pme_recip_fn(top, cfg, box_extent, device=None):
         q_eff = charges * (1.0 - cm * (1.0 - couple))
         return recip3(x, q_eff, box)
 
+    def batched(x, box, couples):
+        """[R] energies of x [R, N, 3] at couples [R] (Pme3.batched)."""
+        q_eff = charges * (1.0 - cm * (1.0 - couples[:, None]))
+        return recip3.batched(x, q_eff, box)
+
     recip.grid = recip3.K
+    recip.batched = batched
     return recip

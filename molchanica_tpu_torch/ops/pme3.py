@@ -83,13 +83,11 @@ def _axis_weights(u, K, order, derivs=False):
     w, dw = bspline_weights_and_derivs(u - u0, order)        # [A, order]
     offs = torch.arange(order, device=u.device)
     idx = torch.remainder(u0.long()[:, None] - offs[None, :], K)
-    W = torch.zeros((u.shape[0], K), dtype=u.dtype, device=u.device)
-    W.scatter_add_(1, idx, w)
+    zero = torch.zeros((u.shape[0], K), dtype=u.dtype, device=u.device)
+    W = zero.scatter_add(1, idx, w)        # out of place: vmap batches it
     if not derivs:
         return W
-    dW = torch.zeros_like(W)
-    dW.scatter_add_(1, idx, dw)
-    return W, dW
+    return W, zero.scatter_add(1, idx, dw)
 
 
 class Pme3:
@@ -228,6 +226,15 @@ class Pme3:
         """Differentiable in x, q and the box."""
         return _Pme3Fn.apply(x, q, box, self)
 
+    def batched(self, x, q, box):
+        """[R] energies of R independent charge sets (x [R, N, 3], q [R,
+        N]) on one box: the same products with a leading replica axis
+        (torch.func.vmap of energy_parts and grads). Differentiable in x
+        and q."""
+        if box.requires_grad:
+            raise ValueError("Pme3.batched: no box gradient")
+        return _Pme3BatchFn.apply(x, q, box, self)
+
 
 class _Pme3Fn(torch.autograd.Function):
     @staticmethod
@@ -245,6 +252,24 @@ class _Pme3Fn(torch.autograd.Function):
               else None)
         return e_bar * gx, e_bar * gq, \
             None if gb is None else e_bar * gb, None
+
+
+class _Pme3BatchFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, q, box, pme):
+        from torch.func import vmap
+        e, DR, DI = vmap(pme.energy_parts, in_dims=(0, 0, None))(x, q, box)
+        ctx.pme = pme
+        ctx.save_for_backward(x, q, box, DR, DI)
+        return e
+
+    @staticmethod
+    def backward(ctx, e_bar):
+        from torch.func import vmap
+        x, q, box, DR, DI = ctx.saved_tensors
+        gx, gq = vmap(ctx.pme.grads, in_dims=(0, 0, None, 0, 0))(
+            x, q, box, DR, DI)
+        return e_bar[:, None, None] * gx, e_bar[:, None] * gq, None, None
 
 
 def make_pme3_recip_fn(grid_shape, beta, device=None, dtype=torch.float32):

@@ -1,13 +1,18 @@
-"""One simulation split over several processes, end to end at a small size.
+"""The JAX package's multichip dry run, end to end at a small size.
 
     dryrun_multidevice(4, "gloo", "cuda")
 
-spawns n ranks (parallel/launch.py) that run the spatial paths of the
-JAX package's multichip dry run on torch.distributed: the dense slab
-force of one 64 n-atom system, a 4-step sharded MD run with two
-re-partitions, and the sharded colpair kernel on a 600-atom sorted state
-against the single-device kernel. The replica parts of that dry run wait
-for the ReplicaFarm port.
+spawns n ranks (parallel/launch.py) that run its spatial paths on
+torch.distributed: the dense slab force of one 64 n-atom system, a 4-step
+sharded MD run with two re-partitions, and the sharded colpair kernel on a
+600-atom sorted state against the single-device kernel.
+
+    dryrun_replica_ti(4, devices=["cuda", "cuda"])
+
+runs its replica-TI part in one process: an LJ bath with one coupled
+particle, one lambda window per replica of a ReplicaFarm whose replica
+axis is cut over `devices`, 3 equilibration and 6 recorded steps, TI with
+SEM.
 """
 from __future__ import annotations
 
@@ -147,3 +152,56 @@ def dryrun_multidevice(n_devices: int = 4, backend: str = "gloo",
           f"sharded colpair ({r0['n_cp']} atoms, halo {r0['halo']}) "
           f"matches one device to {worst:.1e}", flush=True)
     return dict(r0, colpair_err=worst)
+
+
+def dryrun_replica_ti(n_windows: int = 4, devices=None,
+                      device=None) -> dict:
+    """The replica-TI part of the multichip dry run: 20 LJ bath particles
+    and one coupled particle in a 12 A box (allpairs_cutoff, Langevin
+    gamma 2/ps at 120 K, FIRE over 100 iterations), n_windows lambda
+    windows from 0 to 1 as the replicas of one ReplicaFarm cut over
+    `devices` (None: one chunk on `device`, None meaning the CUDA card), 3
+    steps of equilibration, then 6 steps with dH/dlambda recorded, TI with
+    SEM. Returns the windows' lambdas and samples, dG, SEM, the final
+    positions (numpy) and the farm's devices; raises on a non-finite
+    result."""
+    from ..md.alchemical import free_energy_ti_with_sem
+    from ..md.config import Integrator, MdConfig
+    from ..md.engine import MdSim
+    from ..molecules.spec import MolSpec, assemble_system
+    from .replicas import ReplicaFarm
+
+    rngt = np.random.default_rng(7)
+    baths = [MolSpec(masses=[39.9], charges=[0.0], lj_sigma=[3.3],
+                     lj_eps=[0.25], positions=rngt.uniform(0, 12, (1, 3)))
+             for _ in range(20)]
+    solute = MolSpec(masses=[39.9], charges=[0.0], lj_sigma=[3.3],
+                     lj_eps=[0.25], positions=np.array([[6.0, 6.0, 6.0]]))
+    asys = assemble_system([solute] + baths, box_extent=np.array([12.0] * 3),
+                           alchemical_mol=0)
+    cfg = MdConfig(integrator=Integrator.langevin_middle(gamma=2.0),
+                   temp_target=120.0, lj_cutoff=5.0, coulomb_cutoff=5.0,
+                   dtype="float32", max_init_relaxation_iters=100,
+                   zero_com_drift=False, seed=3)
+    sim = MdSim(asys.topology, cfg, asys.positions,
+                box_extent=asys.box_extent, method="allpairs_cutoff",
+                device=device)
+    lams = np.linspace(0.0, 1.0, n_windows)
+    farm = ReplicaFarm(sim, n_windows, couples=1.0 - lams, devices=devices,
+                       seed=1)
+    farm.step(0.002, 3)                       # equilibration
+    farm.dhdl_trace = [[] for _ in range(n_windows)]
+    farm.step(0.002, 6, record_dhdl=True)     # production + dH/dl
+    windows = farm.windows()
+    dg, sem = free_energy_ti_with_sem(windows)
+    x = farm.x.detach().cpu().numpy()
+    if not (np.isfinite(dg) and np.isfinite(sem) and np.isfinite(x).all()):
+        raise RuntimeError(f"dryrun_replica_ti: dG {dg}, SEM {sem}, finite "
+                           f"positions {bool(np.isfinite(x).all())}")
+    devs = [str(d) for d in farm.devices]
+    print(f"dryrun_replica_ti OK: {n_windows} lambda windows over "
+          f"{len(devs)} chunks ({', '.join(devs)}), dynamics -> dH/dl -> "
+          f"trapezoid TI, dG={dg:.3f}+-{sem:.3f} kcal/mol", flush=True)
+    return dict(lams=[w.lam for w in windows],
+                samples=[w.dhdl_samples.tolist() for w in windows], dg=dg,
+                sem=sem, x=x, devices=devs)

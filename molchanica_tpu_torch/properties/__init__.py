@@ -1,2 +1,3 @@
 """Science workloads built on the MD engines (reference src/properties/)."""
-from .water_sol import WaterSolMdProperties, run_sol_sim_fast  # noqa: F401
+from .water_sol import (WaterSolMdProperties, run_sol_sim,  # noqa: F401
+                        run_sol_sim_fast)

@@ -1,6 +1,7 @@
-"""Hydration free energy + solvation descriptors on FastSim (port of
-molchanica_tpu.properties.water_sol: `run_sol_sim_fast` and its result
-bundle; the ReplicaFarm protocol `run_sol_sim` is not ported yet).
+"""Hydration free energy + solvation descriptors (port of
+molchanica_tpu.properties.water_sol): `run_sol_sim`, every lambda window a
+replica of one ReplicaFarm over MdSim, and `run_sol_sim_fast`, the windows
+one after another on FastSim.
 
 Reference: `run_sol_sim` (src/properties/water_sol.rs:691) — solvated-MD
 descriptors plus 13-window thermodynamic integration (lambda list at :55,
@@ -31,10 +32,14 @@ class WaterSolMdProperties:
     mean_n_water_contacts: float
     mean_n_h_bonds: float
     windows: List[LambdaWindow] = field(default_factory=list)
-    # the engine's account of the run: force_evals (every evaluation, the
-    # dhdl ones included), window_steps and window_step_s (the lambda
-    # windows' step calls, host clock; dhdl excluded), temperature_K after
-    # the last window
+    # the engine's account of the run. run_sol_sim_fast: force_evals
+    # (every evaluation, the dhdl ones included), window_steps and
+    # window_step_s (the lambda windows' step calls, host clock; dhdl
+    # excluded), temperature_K after the last window. run_sol_sim:
+    # farm_steps and farm_s (the farm's step calls, host clock),
+    # farm_force_evals (batched), sim_force_evals (relaxation and warm-up),
+    # the relaxation's log, the temperature after the warm-ups, each
+    # replica's final temperature, whether every final position is finite
     run_metrics: dict = field(default_factory=dict)
 
 
@@ -58,6 +63,101 @@ def hydration_setup(mol: MolSpec, box_side: float = HYDRATION_BOX_SIDE,
     if cfg_overrides:
         cfg_kw.update(cfg_overrides)
     return asys, MdConfig(**cfg_kw)
+
+
+def run_sol_sim(
+    mol: MolSpec,
+    box_side: float = HYDRATION_BOX_SIDE,
+    lambdas: Optional[List[float]] = None,
+    equil_steps: int = HYDRATION_EQUIL_STEPS,
+    prod_steps: int = HYDRATION_PROD_STEPS,
+    dt_ps: float = 0.002,
+    temp: float = 310.0,
+    devices=None,
+    seed: int = 0,
+    dhdl_interval: int = 10,
+    water_model=OPC,
+    cfg_overrides: Optional[dict] = None,
+    device=None,
+) -> WaterSolMdProperties:
+    """Hydration TI with every lambda window a replica of one batched
+    ReplicaFarm (`mol` a parameterized MolSpec). The solute is centred in
+    a water box as the coupled molecule 0; MdSim relaxes it (FIRE over
+    400 iterations) and runs two capped warm-ups at full coupling; the
+    farm then equilibrates every window for equil_steps and samples
+    dH/dlambda on one recorded step after every dhdl_interval steps of
+    production. Descriptors come from the fully coupled replica. On
+    `device` (None: the CUDA card); `devices` cuts the replica axis over
+    several (parallel/replicas.py). Scale equil_steps, prod_steps,
+    box_side and lambdas down for tests; the defaults are the reference
+    protocol's (water_sol.rs:50-55)."""
+    import time
+
+    from ..md.engine import MdSim
+    from ..parallel.replicas import ReplicaFarm
+
+    lambdas = lambdas if lambdas is not None else HYDRATION_LAMBDAS
+    box = np.array([box_side] * 3)
+    mol = mol.translated(box / 2.0 - np.asarray(mol.positions).mean(axis=0))
+    asys = assemble_system([mol], box_extent=box, water_model=water_model,
+                           alchemical_mol=0, seed=seed)
+    cfg_kw = dict(
+        integrator=Integrator.langevin_middle(gamma=1.0),
+        temp_target=temp, lj_cutoff=9.0, coulomb_cutoff=9.0,
+        hydrogen_constraint=HydrogenConstraint.shake(),
+        dtype="float32", max_init_relaxation_iters=400,
+        steps_per_chunk=100, seed=seed,
+    )
+    if cfg_overrides:
+        cfg_kw.update(cfg_overrides)
+    cfg = MdConfig(**cfg_kw)
+    sim = MdSim(asys.topology, cfg, asys.positions,
+                box_extent=asys.box_extent, device=device)
+
+    # gentle capped warmup at full coupling before fanning out
+    sim.step(0.0005, min(400, equil_steps), force_cap=1000.0)
+    sim.step(0.001, min(400, equil_steps), force_cap=3000.0)
+    warm_t = sim.temperature()
+
+    couples = 1.0 - np.asarray(lambdas)
+    farm = ReplicaFarm(sim, len(lambdas), couples=couples, devices=devices,
+                       seed=seed)
+    t0 = time.perf_counter()
+    # per-window equilibration (no dhdl recording)
+    farm.step(dt_ps, equil_steps)
+    # production with dH/dlambda sampling
+    done = 0
+    while done < prod_steps:
+        todo = min(dhdl_interval, prod_steps - done)
+        farm.step(dt_ps, todo)
+        farm.step(dt_ps, 1, record_dhdl=True)
+        done += todo + 1
+    farm_s = time.perf_counter() - t0
+    windows = farm.windows()
+    dg, sem = free_energy_ti_with_sem(windows)
+
+    # descriptors from the fully-coupled replica (index of lambda=0)
+    i0 = int(np.argmin(np.asarray(lambdas)))
+    x0 = farm.x[i0].detach().cpu().numpy()
+    contacts, hbonds = _water_contact_stats(asys, x0)
+    coupled_mean = float(np.mean(windows[i0].dhdl_samples)) \
+        if len(windows[i0].dhdl_samples) else float("nan")
+    return WaterSolMdProperties(
+        dg_hydration_kcal=-dg,   # decoupling dG -> hydration dG sign
+        dg_sem_kcal=sem,
+        mean_coupled_interaction_kcal=coupled_mean,
+        mean_n_water_contacts=contacts,
+        mean_n_h_bonds=hbonds,
+        windows=windows,
+        run_metrics=dict(
+            farm_steps=farm.step_count, farm_s=farm_s,
+            farm_force_evals=farm.force_evals,
+            sim_force_evals=sim.force_evals, relax=sim.relax_log,
+            warmup_temperature_K=warm_t,
+            temperatures_K=farm.temperatures().tolist(),
+            finite=bool(np.isfinite(farm.x.detach().cpu().numpy()).all()),
+            n_replicas=farm.n, n_sites=int(asys.topology.n_atoms_real)),
+    )
 
 
 def run_sol_sim_fast(

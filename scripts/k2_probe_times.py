@@ -3,6 +3,7 @@
 probe P (csrc/probe_prefetch.cu) of one tree of the port, on one CUDA card.
 
     python3 scripts/k2_probe_times.py [--root DIR] [--out FILE] [--phases]
+        [--k2-out FILE] [--k2-same FILE]
 
 `--root` names the checkout whose molchanica_tpu_torch is built and timed
 (default: this one), so that two builds of the kernels can be compared in
@@ -18,7 +19,10 @@ cost per call included). K2 takes couple and beta as scalars on the card; a tree
 with the old C entry (13 arguments, whose wrapper copied beta from the
 host and so could not be captured) is launched through that entry with a
 params tensor made once, so that both are timed alike. Prints one JSON line, and
-writes it to FILE with `--out`.
+writes it to FILE with `--out`. `--k2-out FILE` saves K2's output on
+config 3's grid (torch.save), and `--k2-same FILE` holds this tree's
+output to such a file bit for bit (two trees' K2 on the same inputs:
+run the other tree with --k2-out first).
 
 `--phases` (this checkout's kernel only) also builds variants of
 csrc/direct_force.cu made by text substitution (cuda_build.build_variants:
@@ -164,6 +168,8 @@ def main():
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--out")
     ap.add_argument("--phases", action="store_true")
+    ap.add_argument("--k2-out")
+    ap.add_argument("--k2-same")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -203,6 +209,13 @@ def main():
                      cuda_ms=smoke.cuda_ms(launch, N_GRAPH),
                      pairs=stats["pairs"], site_rel_err=rel_f,
                      cell_rel_err_e=rel_e)
+    if args.k2_out:
+        torch.save(out.cpu(), args.k2_out)
+    if args.k2_same:
+        same = torch.equal(out.cpu(), torch.load(args.k2_same))
+        res["k2"]["same_bits_as"] = {args.k2_same: same}
+        if not same:
+            raise SystemExit(f"K2's output differs from {args.k2_same}")
     if args.phases:
         if root != HERE:
             raise SystemExit("--phases times this checkout's kernel only")

@@ -160,9 +160,10 @@ def test_fast_sim_needs_cuda_unless_cpu_is_asked(systems):
 
 def test_port_imports_no_jax():
     """Every module of the port (MdSim's backends, FIRE and integrators,
-    the hydration path, the parallel package, the barostat, snapshots and
-    the probe among them), and chip_smoke, import without loading jax,
-    flax or any molchanica_tpu module."""
+    the hydration path, the parallel package with the replica farm, the
+    batch workloads of properties/, the barostat, snapshots and the probe
+    among them), and chip_smoke, import without loading jax, flax or any
+    molchanica_tpu module."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import molchanica_tpu_torch as p\n"
@@ -179,7 +180,10 @@ def test_port_imports_no_jax():
         "'parallel.dryrun', 'md.barostat', 'md.snapshot', "
         "'ops.probe_prefetch', 'ops.clusters', 'ops.cells', "
         "'md.minimize', 'md.integrators', 'md.dynamics', "
-        "'systems.testmols']\n"
+        "'systems.testmols', 'parallel.replicas', 'properties.logp', "
+        "'properties.mixing', 'properties.shrinking_box', "
+        "'properties.boundary_layer', 'properties.crystal', "
+        "'systems.octanol']\n"
         "missing = [m for m in need if 'molchanica_tpu_torch.' + m "
         "not in sys.modules]\n"
         "print(len([m for m in sys.modules "

@@ -126,10 +126,28 @@ Phases, each printed on lines of its own:
  33. J: the replica-TI dry run with its replica axis in two chunks on the
      card against one chunk, then the crystal, shrinking-box (with its
      mixing diagnostics) and boundary-layer workloads at small sizes;
- 34. the kernel JSON line, the card line, and the final JSON result line.
-     Phases 24-29 and H-J launch no hand-written kernel: the JAX package
-     computes their direct space in XLA, so the port does it in plain
-     torch.
+ 34. K: docking at the reference's pose budget: the committed pocket
+     fixture (an 804-atom receptor, ibuprofen) through the port's PDB /
+     SDF readers and GAFF2 chain, the site at the ligand's centroid
+     (radius min(r, 9)), DockingSetup on the card and init_poses' 27,360
+     poses; score_poses on the card against the CPU (clash masks, +inf
+     totals, each term per pose within 1e-5 of its pair-term scale, the
+     best ten totals), the fixture test's contract, poses/s, one batch
+     under the profiler, peak memory, find_sites;
+ 35. L: MD shooting: the first shot's assembled system, its allpairs force
+     card vs CPU (phase 28's gate), then dock_md_multi with N_SHOTS shots
+     at dock_md's defaults (800 steps of 2 fs, 120 A/ps, float32, FIRE
+     200): finite traces, each shot closer to the site than its start,
+     the closest within 8 A; ms/step and FIRE wall time per shot;
+ 36. M: density and surface: density_from_atoms of the receptor (8 A
+     margins, ~0.5 A spacing) card vs CPU, its structure factors back
+     through density_map_from_sf on the card, sample_density at the atoms
+     card vs CPU, density_rect around the ligand, the molecular surface of
+     the site-culled receptor;
+ 37. the kernel JSON line, the card line, and the final JSON result line.
+     Phases 24-29 and H-M launch no hand-written kernel: the JAX package
+     computes their direct space, scorer, shots and density in XLA (or
+     numpy), so the port does it in plain torch.
 An NVT hold (the mean temperature of further FastSim steps near 310 K)
 runs only when --hold N asks for it.
 
@@ -170,6 +188,12 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "molchanica_tpu", "systems", "data",
                        "eq25k.npz")
+# phases K-M: the committed pocket fixture (a collapsed 804-atom receptor
+# and ibuprofen)
+POCKET_PDB = os.path.join(ROOT, "molchanica_tpu", "systems", "data",
+                          "pocket_fixture.pdb")
+POCKET_SDF = os.path.join(ROOT, "molchanica_tpu", "systems", "data",
+                          "pocket_ligand.sdf")
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -303,6 +327,31 @@ WINDOW_BLOWUP_K = 1e4
 # stage (their JAX tests run 200, 450 and 60)
 J_STEPS = 150
 J_STAGE = 30
+# phase K: the reference's pose budget (8^3 grid x 60 orientations, 27,360
+# poses on the fixture), the site radius cap of tests/test_pocket_fixture.py,
+# the scorer card vs CPU per term and pose within DOCK_TOL of the pose's
+# pair-term scale (pose_term_magnitudes), plus the smallest normal float32
+# per pair (a subnormal term), and the best DOCK_TOP totals compared as
+# totals (near-tied poses may swap places)
+DOCK_GRID = 8
+DOCK_ORIENTATIONS = 60
+DOCK_SITE_RADIUS = 9.0
+DOCK_TOL = 1e-5
+DOCK_TOP = 10
+# phase L: MD shots at dock_md's defaults (800 steps of 2 fs, 120 A/ps,
+# float32, FIRE 200); the reference's dock_md_multi runs 8. On one H100
+# a shot took 9.4-13.6 s (9-16 ms per step, host-bound, FIRE ~2-3 s), so
+# 8 shots (108.9 s on the slower host) overrun phases K-M's budget of
+# about 120 s beside K's ~20 s, and 6 fit
+N_SHOTS = 6
+# phase M: the receptor's density in a cubic cell with DENSITY_MARGIN A on
+# each side at about DENSITY_STEP A spacing, card vs CPU within DENSITY_TOL
+# of max|rho|; atomic numbers of the fixture's elements
+DENSITY_MARGIN = 8.0
+DENSITY_STEP = 0.5
+DENSITY_TOL = 1e-5
+SAMPLE_TOL = 1e-9
+ATOMIC_NUMBER = {"H": 1, "C": 6, "N": 7, "O": 8, "S": 16}
 # phase E: the card's float32 force on relaxed ethanol against the CPU's
 # float64 one, in units of the CPU's own float32 error against it
 VAC_FLOORS = 4.0
@@ -2975,6 +3024,372 @@ def dryrun_properties_phase(torch, np):
     return out
 
 
+def load_pocket():
+    """The fixture through the port's readers and GAFF2 chain: (pocket,
+    ligand molecule, receptor spec, ligand spec, site, typing seconds)."""
+    from molchanica_tpu_torch.docking import DockingSite
+    from molchanica_tpu_torch.io import read_sdf
+    from molchanica_tpu_torch.molecules.pocket import MoleculePocket
+
+    lig = read_sdf(POCKET_SDF)
+    pocket = MoleculePocket.from_file(POCKET_PDB, pdb_id="fixture",
+                                      ligand=lig)
+    t0 = time.perf_counter()
+    rec = pocket.mol.to_spec(strict=False)
+    lig_s = lig.to_spec(strict=False)
+    typing_s = time.perf_counter() - t0
+    c, r = pocket.docking_site()
+    site = DockingSite(site_center=c,
+                       site_radius=min(float(r), DOCK_SITE_RADIUS))
+    return pocket, lig, rec, lig_s, site, typing_s
+
+
+def score_gate(be, be_c, mag, n_pairs, np):
+    """score_poses on the card (be) against the CPU (be_c): (clash masks
+    equal, +inf totals on the same poses and only on clashes, per term
+    the worst error over the poses in units of its limit, DOCK_TOL of
+    the pose's pair-term scale `mag` plus the smallest normal float32 per
+    pair for subnormal terms)."""
+    from molchanica_tpu_torch.docking.scorer import TERMS
+
+    floor = float(np.finfo(np.float32).tiny) * n_pairs
+    worst = {}
+    for k in TERMS + ("total",):
+        a = getattr(be_c, k).astype(np.float64)
+        b = getattr(be, k).astype(np.float64)
+        keep = np.isfinite(a)
+        err = np.abs(a[keep] - b[keep])
+        worst[k] = float((err / (DOCK_TOL * mag[k][keep] + floor)).max())
+    same_clash = bool(np.array_equal(be.clash, be_c.clash))
+    same_inf = bool(np.array_equal(np.isinf(be.total), np.isinf(be_c.total))
+                    and np.array_equal(np.isinf(be.total), be.clash))
+    return same_clash, same_inf, worst
+
+
+def docking_phase(torch, np):
+    """Phase K: the fixture typed by the port (804-atom receptor, 33-atom
+    ligand), the site at the ligand's centroid with radius min(r, 9),
+    DockingSetup on the card and the reference's pose budget (init_poses
+    n_grid 8, 60 orientations: 27,360 poses); score_poses on the card (a
+    warm-up call, then a timed one) held against the CPU over the same
+    poses: clash masks identical, +inf totals on the same poses, per term
+    and pose within DOCK_TOL of its pair-term scale, the best DOCK_TOP
+    totals alike; the fixture test's contract (unclashed totals finite, at
+    least 10 survive, the best below 0); one batch again with H-bond
+    donors on the ligand (card vs CPU, the H-bond term nonzero); one
+    batch's device time under the profiler, peak memory, find_sites."""
+    from molchanica_tpu_torch.docking import (DockingSetup, find_sites,
+                                              init_poses)
+    import dataclasses
+
+    from molchanica_tpu_torch.docking.scorer import (DEFAULT_BATCH,
+                                                     make_pose_scorer,
+                                                     pose_term_magnitudes,
+                                                     score_poses)
+
+    pocket, lig, rec, lig_s, site, typing_s = load_pocket()
+    setup = DockingSetup.new(rec, site)
+    poses = init_poses(lig_s.positions, site.site_center,
+                       site_radius=float(site.site_radius), n_grid=DOCK_GRID,
+                       n_orientations=DOCK_ORIENTATIONS)
+    n_p, n_l, n_r = poses.shape[0], poses.shape[1], setup.rec_pos.shape[0]
+    say(f"[dock] fixture: receptor {rec.n_atoms} atoms, ligand "
+        f"{lig_s.n_atoms} atoms, typed in {typing_s:.3f} s; site r = "
+        f"{float(site.site_radius):.2f} A; {setup.n_rec_real} receptor atoms "
+        f"culled, R = {n_r}; {n_p} poses = {n_p * n_l * n_r:,} pairs")
+    if n_p != 27360:
+        raise SystemExit(f"docking: {n_p} poses, not the reference's 27,360")
+    score_poses(setup, lig_s, poses)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    be = score_poses(setup, lig_s, poses)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    be_c = score_poses(setup, lig_s, poses, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    mag = pose_term_magnitudes(setup, lig_s, poses)
+    same_clash, same_inf, worst = score_gate(be, be_c, mag, n_l * n_r, np)
+    top_g = np.sort(be.total)[:DOCK_TOP].astype(np.float64)
+    top_c = np.sort(be_c.total)[:DOCK_TOP].astype(np.float64)
+    top_err = float(np.abs(top_g - top_c).max())
+    top_lim = DOCK_TOL * float(mag["total"][np.isfinite(be.total)].max())
+    alive = ~be.clash
+    n_alive = int(alive.sum())
+    best = float(be.total.min())
+    say(f"[dock] score_poses on the card: {wall * 1e3:.3f} ms for {n_p} "
+        f"poses = {n_p / wall:,.0f} poses/s (batch {DEFAULT_BATCH}, "
+        f"{-(-n_p // DEFAULT_BATCH)} batches); peak memory {peak:.3f} GiB; "
+        f"the CPU's {cpu_s:.2f} s")
+    say(f"[dock] card vs CPU: clash masks equal {same_clash}, +inf on the "
+        f"same poses {same_inf}; worst error per term in units of its "
+        f"limit (DOCK_TOL x the pose's pair-term scale + subnormal floor): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f"; best {DOCK_TOP} totals max|d| {top_err:.3e} (limit "
+        f"{top_lim:.3e})")
+    say(f"[dock] contract: {n_alive} of {n_p} poses survive the clash cull, "
+        f"best total {best:.4f} kcal/mol (pose {int(np.argmin(be.total))}), "
+        f"lj {float(be.lj[np.argmin(be.total)]):.4f}, coulomb "
+        f"{float(be.coulomb[np.argmin(be.total)]):.4f}")
+    if not (same_clash and same_inf and max(worst.values()) <= 1.0
+            and top_err <= top_lim):
+        raise SystemExit("docking scorer: card and CPU disagree")
+    if not (np.isfinite(be.total[alive]).all() and n_alive >= 10
+            and best < 0.0):
+        raise SystemExit(f"docking contract: {n_alive} survive, best {best}")
+    # Gasteiger gives no hydrogen of the fixture a charge above 0.25, so
+    # the H-bond term is zero above: one batch again with the elements'
+    # rules and the ligand's hydrogens at +0.3 (its carbons take the
+    # balance), card vs CPU
+    el_l = lig.elements
+    q = np.asarray(lig_s.charges, float).copy()
+    h = np.array([e == "H" for e in el_l])
+    cb = np.array([e == "C" for e in el_l])
+    q[h] = 0.3
+    q[cb] -= (q.sum() - float(np.sum(lig_s.charges))) / cb.sum()
+    lig_d = dataclasses.replace(lig_s, charges=q)
+    setup_e = DockingSetup.new(rec, site, elements=pocket.mol.elements)
+    sub = poses[:DEFAULT_BATCH]
+    be_d = score_poses(setup_e, lig_d, sub, el_l)
+    be_dc = score_poses(setup_e, lig_d, sub, el_l, device="cpu")
+    mag_d = pose_term_magnitudes(setup_e, lig_d, sub, el_l)
+    same_d = score_gate(be_d, be_dc, mag_d, n_l * n_r, np)
+    n_hb = int((np.abs(be_d.h_bonds) > 0).sum())
+    say(f"[dock] donors (ligand H at +0.3), {len(sub)} poses: {n_hb} with "
+        f"H-bonds, clash masks equal {same_d[0]}, +inf alike {same_d[1]}; "
+        + ", ".join(f"{k} {v:.3e}" for k, v in same_d[2].items()))
+    if not (same_d[0] and same_d[1] and max(same_d[2].values()) <= 1.0
+            and n_hb > 0):
+        raise SystemExit("docking scorer with donors: card and CPU disagree")
+    scorer = make_pose_scorer(setup, lig_s)
+    batch = torch.as_tensor(poses[:DEFAULT_BATCH], device=setup.device)
+    _, _, _, dev_ms, kernels, prof_wall = profile_calls(
+        lambda: scorer(batch), torch)
+    say(f"[dock] one batch of {DEFAULT_BATCH} poses under the profiler: "
+        f"device {dev_ms:.3f} ms in {kernels} kernels, wall "
+        f"{prof_wall:.3f} ms")
+    t0 = time.perf_counter()
+    sites = find_sites(rec.positions)
+    sites_s = time.perf_counter() - t0
+    say(f"[dock] find_sites: {len(sites)} sites in {sites_s:.3f} s (host)")
+    if not sites:
+        raise SystemExit("find_sites found no site on the fixture")
+    return dict(n_poses=n_p, n_pairs=n_p * n_l * n_r, n_rec=setup.n_rec_real,
+                R=n_r, wall_ms=wall * 1e3, poses_per_s=n_p / wall,
+                peak_gib=peak, cpu_s=cpu_s, worst_over_limit=worst,
+                survive=n_alive, best_total=best, batch_device_ms=dev_ms,
+                batch_kernels=kernels, batch_wall_ms=prof_wall,
+                n_sites=len(sites), typing_s=typing_s)
+
+
+def shoot_phase(torch, np):
+    """Phase L: on the fixture's specs and site, the assembled system of
+    the first shot (its allpairs force and energy card vs CPU at phase
+    28's gate, 1e-4 of max|F| and rel 1e-5), then dock_md_multi on the
+    card at dock_md's defaults (800 steps of 2 fs, 120 A/ps, float32,
+    FIRE 200) with N_SHOTS shots: every trace value and ligand_final
+    finite, each shot's closest approach to the site below its start
+    distance, and the closest of all below START_DIST. A shot starts
+    START_DIST out, or further where the receptor is in the way (the
+    fixture's site lies inside the globule: shots 0 and 2 of 6 start 23
+    and 24 A out), so the receptor can stop a shot short of the site. Each MdSim
+    is timed through a subclass (FIRE at construction, the step calls
+    between synchronizes), which also keeps the ligand's start."""
+    from molchanica_tpu_torch.docking import shoot
+
+    _, _, rec, lig_s, site, _ = load_pocket()
+    c = np.asarray(site.site_center, float)
+    # the first shot's approach (dock_md_multi's k = 0) and system
+    z = 1.0 - 1.0 / N_SHOTS
+    approach = np.array([np.sqrt(1.0 - z * z), 0.0, z])
+    asys = shoot.shot_system(rec, lig_s, c, approach)
+    cfg = shoot.shot_config()
+    md_g = shoot.MdSim(asys.topology, cfg, asys.positions, relax=False,
+                       device="cuda")
+    md_c = shoot.MdSim(asys.topology, cfg, asys.positions, relax=False,
+                       device="cpu")
+    x_c = md_c.state.positions
+    with torch.no_grad():
+        f_g, (e_g, _) = md_g.force_fn(x_c.to(md_g.device), None,
+                                      md_g.state.couple)
+        f_c, (e_c, _) = md_c.force_fn(x_c, None, md_c.state.couple)
+    err = float((f_g.cpu() - f_c).abs().max())
+    f_max = float(f_c.abs().max())
+    e_rel = abs(float(e_g) - float(e_c)) / abs(float(e_c))
+    say(f"[shoot] system {asys.topology.n_atoms_real} atoms, method "
+        f"{md_g.method}; allpairs force card vs CPU max|dF|={err:.3e} "
+        f"(max|F|={f_max:.3f}); energy {float(e_g):.4f} vs "
+        f"{float(e_c):.4f} rel {e_rel:.2e}")
+    if md_g.method != "allpairs" or err > 1e-4 * f_max or e_rel > 1e-5:
+        raise SystemExit("shot system: allpairs force parity failed")
+
+    timings = []
+
+    class Timed(shoot.MdSim):
+        def __init__(self, top, cfg, x0, **kw):
+            super().__init__(top, cfg, x0, **kw)
+            self._outer = True
+            lig0 = np.asarray(x0)[rec.n_atoms:rec.n_atoms + lig_s.n_atoms]
+            timings.append(dict(fire_s=self.relax_log["seconds"],
+                                steps=0, step_s=0.0, sim=self,
+                                start=float(np.linalg.norm(
+                                    lig0.mean(0) - c))))
+
+        def step(self, dt_ps, n_steps=1, *a, **kw):
+            # the caller's calls only (a long call steps itself in chunks)
+            outer, self._outer = self._outer, False
+            t0 = time.perf_counter()
+            try:
+                return super().step(dt_ps, n_steps, *a, **kw)
+            finally:
+                self._outer = outer
+                if outer:
+                    torch.cuda.synchronize()
+                    timings[-1]["step_s"] += time.perf_counter() - t0
+                    timings[-1]["steps"] += n_steps
+
+    base, shoot.MdSim = shoot.MdSim, Timed
+    try:
+        t0 = time.perf_counter()
+        shots = shoot.dock_md_multi(rec, lig_s, n_shots=N_SHOTS,
+                                    site_center=c)
+        wall = time.perf_counter() - t0
+    finally:
+        shoot.MdSim = base
+    ms = [1e3 * tm["step_s"] / tm["steps"] for tm in timings]
+    fire = [tm["fire_s"] for tm in timings]
+    lig_rows = slice(rec.n_atoms, rec.n_atoms + lig_s.n_atoms)
+    starts, ok = [], len(shots) == len(timings) == N_SHOTS
+    for k, s in enumerate(shots):
+        # the shot's MdSim: the one whose ligand ended at ligand_final
+        tm = [m for m in timings if np.array_equal(
+            m["sim"].state.positions[lig_rows].cpu().numpy(),
+            s.ligand_final)]
+        start = tm[0]["start"] if len(tm) == 1 else float("nan")
+        starts.append(start)
+        say(f"[shoot] shot (best first) {k}: best "
+            f"{s.best_interaction_kcal:.4f} final "
+            f"{s.final_interaction_kcal:.4f} kcal/mol, closest "
+            f"{s.min_site_distance:.3f} A to the site from a start "
+            f"{start:.3f} A out")
+        ok = ok and bool(np.isfinite(s.interaction_trace).all()
+                         and np.isfinite(s.ligand_final).all()
+                         and s.min_site_distance < start)
+    closest = min(s.min_site_distance for s in shots)
+    say(f"[shoot] {N_SHOTS} shots in {wall:.1f} s: ms/step "
+        + ", ".join(f"{v:.3f}" for v in ms) + "; FIRE s "
+        + ", ".join(f"{v:.2f}" for v in fire)
+        + f"; closest approach {closest:.3f} A (limit {shoot.START_DIST})")
+    if not (ok and closest < shoot.START_DIST):
+        raise SystemExit("MD shots: non-finite, or no approach to the site")
+    return dict(n_shots=N_SHOTS, wall_s=wall, ms_per_step=ms, fire_s=fire,
+                best=[s.best_interaction_kcal for s in shots],
+                final=[s.final_interaction_kcal for s in shots],
+                min_site_distance=[s.min_site_distance for s in shots],
+                start_distance=starts, force_err=err, force_max=f_max,
+                energy_rel=e_rel)
+
+
+def density_phase(torch, np):
+    """Phase M: density_from_atoms of the 804-atom receptor on the card in
+    a cubic cell with DENSITY_MARGIN A on each side at about DENSITY_STEP
+    A spacing, against the CPU (DENSITY_TOL of max|rho|); the round trip
+    through density_map_from_sf on the card of the map's structure factors
+    (a forward FFT, every h, k, l up to the grid's Nyquist; DENSITY_TOL of
+    max|rho|); sample_density at the receptor's atoms card vs CPU
+    (SAMPLE_TOL of max|rho|); density_rect around the ligand; the
+    molecular surface of the site-culled receptor."""
+    from molchanica_tpu_torch.density import (density_from_atoms,
+                                              density_map_from_sf,
+                                              density_rect, sample_density)
+    from molchanica_tpu_torch.sfc_mesh import molecular_surface
+
+    pocket, lig, rec, _, site, _ = load_pocket()
+    x = np.asarray(rec.positions, float)
+    z = np.array([ATOMIC_NUMBER[e] for e in pocket.mol.elements], float)
+    lo = x.min(0) - DENSITY_MARGIN
+    side = float((x.max(0) - x.min(0)).max() + 2 * DENSITY_MARGIN)
+    n = int(round(side / DENSITY_STEP))
+    grid, cell = (n, n, n), (side, side, side)
+    density_from_atoms(x - lo, z, cell, grid)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dm = density_from_atoms(x - lo, z, cell, grid)
+    torch.cuda.synchronize()
+    dens_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dm_c = density_from_atoms(x - lo, z, cell, grid, device="cpu")
+    dens_cpu_s = time.perf_counter() - t0
+    rho_max = float(np.abs(dm_c.data).max())
+    d_err = float(np.abs(dm.data.astype(np.float64) - dm_c.data).max())
+    say(f"[density] receptor {len(x)} atoms, cell {side:.3f} A, grid {n}^3 "
+        f"({side / n:.4f} A): card {dens_s * 1e3:.3f} ms, CPU "
+        f"{dens_cpu_s * 1e3:.1f} ms; max|d rho| {d_err:.3e} = "
+        f"{d_err / rho_max:.3e} of max|rho| {rho_max:.4f} (limit "
+        f"{DENSITY_TOL:g})")
+    if not (np.isfinite(dm.data).all() and d_err <= DENSITY_TOL * rho_max):
+        raise SystemExit("density_from_atoms: card and CPU disagree")
+
+    rho = dm.data.astype(np.float64)
+    F = np.fft.fftn(rho) * np.prod(cell) / rho.size
+    idx = np.indices(grid).reshape(3, -1)
+    h, k, l = (np.rint(np.fft.fftfreq(n) * n).astype(int)[i] for i in idx)
+    f = F[tuple(idx)]
+    t0 = time.perf_counter()
+    back = density_map_from_sf(h, k, l, re=f.real, im=f.imag, grid=grid,
+                               cell=cell)
+    torch.cuda.synchronize()
+    sf_s = time.perf_counter() - t0
+    sf_err = float(np.abs(back.data - rho).max())
+    say(f"[density] structure factors of the map ({len(h):,} reflections, "
+        f"|h|,|k|,|l| up to {n // 2}) back through density_map_from_sf on "
+        f"the card in {sf_s * 1e3:.1f} ms: max|d rho| {sf_err / rho_max:.3e}"
+        f" of max|rho| (limit {DENSITY_TOL:g})")
+    if not sf_err <= DENSITY_TOL * rho_max:
+        raise SystemExit("density_map_from_sf round trip failed")
+
+    dm.origin = lo
+    t0 = time.perf_counter()
+    s_g = sample_density(dm, x)
+    sample_s = time.perf_counter() - t0
+    s_c = sample_density(dm, x, device="cpu")
+    s_err = float(np.abs(s_g - s_c).max())
+    rect = density_rect(dm, lig.positions)
+    covers = bool(np.all(rect.origin <= lig.positions.min(0))
+                  and np.all(rect.origin + np.asarray(rect.cell)
+                             >= lig.positions.max(0)))
+    say(f"[density] sample_density at the {len(x)} atoms: card "
+        f"{sample_s * 1e3:.3f} ms, card vs CPU max|d| {s_err:.3e} (limit "
+        f"{SAMPLE_TOL:g} of max|rho|), mean {float(s_g.mean()):.4f}; "
+        f"density_rect around the ligand {rect.dims}, covers it {covers}")
+    if not (s_err <= SAMPLE_TOL * rho_max and np.isfinite(s_g).all()
+            and covers):
+        raise SystemExit("sample_density / density_rect failed")
+
+    near = np.linalg.norm(x - np.asarray(site.site_center), axis=1) \
+        < float(site.site_radius) + 6.0
+    t0 = time.perf_counter()
+    mesh = molecular_surface(x[near])
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    say(f"[density] molecular_surface of the {int(near.sum())} site-culled "
+        f"receptor atoms: {mesh.n_triangles} triangles, {len(mesh.vertices)}"
+        f" vertices, area {mesh.area():.3f} A^2, {mesh_s:.2f} s")
+    if not (mesh.n_triangles > 0 and np.isfinite(mesh.vertices).all()
+            and np.all(mesh.vertices.min(0) < x[near].min(0))
+            and np.all(mesh.vertices.max(0) > x[near].max(0))):
+        raise SystemExit("molecular_surface: empty or does not enclose")
+    return dict(grid=n, cell=side, density_ms=dens_s * 1e3,
+                density_cpu_ms=dens_cpu_s * 1e3, density_err=d_err / rho_max,
+                sf_ms=sf_s * 1e3, sf_err=sf_err / rho_max,
+                sample_ms=sample_s * 1e3, sample_err=s_err,
+                rect_dims=list(rect.dims), mesh_atoms=int(near.sum()),
+                triangles=mesh.n_triangles, area=mesh.area(),
+                mesh_s=mesh_s)
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3297,7 +3712,16 @@ def main():
     # ---- 33. J: the replica-TI dry run and the properties ----
     props = dryrun_properties_phase(torch, np)
 
-    # ---- 34. results ----
+    # ---- 34. K: docking at the reference's pose budget ----
+    docking = docking_phase(torch, np)
+
+    # ---- 35. L: MD shooting ----
+    docking["shots"] = shoot_phase(torch, np)
+
+    # ---- 36. M: density and surface ----
+    density = density_phase(torch, np)
+
+    # ---- 37. results ----
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     if args.profile:
@@ -3319,6 +3743,7 @@ def main():
                            clusters=clus, mdd=mdd, mdd_npt=mdd_npt,
                            vacuum=vac, alch_md=alch_md, farm_k2=farm_k2,
                            farm_h=farm_h, logp=logp, properties=props,
+                           docking=docking, density=density,
                            kernels=entries),
                       fh, indent=1)
     say(json.dumps({"kernels": [

@@ -161,9 +161,10 @@ def test_fast_sim_needs_cuda_unless_cpu_is_asked(systems):
 def test_port_imports_no_jax():
     """Every module of the port (MdSim's backends, FIRE and integrators,
     the hydration path, the parallel package with the replica farm, the
-    batch workloads of properties/, the barostat, snapshots and the probe
-    among them), and chip_smoke, import without loading jax, flax or any
-    molchanica_tpu module."""
+    batch workloads of properties/, the barostat, snapshots, the probe,
+    the PDB / SDF readers and GAFF2 chain, docking, density and the
+    surface mesher among them), and chip_smoke, import without loading
+    jax, flax or any molchanica_tpu module."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import molchanica_tpu_torch as p\n"
@@ -183,7 +184,12 @@ def test_port_imports_no_jax():
         "'systems.testmols', 'parallel.replicas', 'properties.logp', "
         "'properties.mixing', 'properties.shrinking_box', "
         "'properties.boundary_layer', 'properties.crystal', "
-        "'systems.octanol']\n"
+        "'systems.octanol', 'molecules.elements', 'molecules.common', "
+        "'molecules.bond_inference', 'io.pdb', 'io.sdf', "
+        "'molecules.pocket', 'ff.amber_dat', 'ff.data.gaff2_subset', "
+        "'ff.typing_gaff', 'ff.charges', 'ff.params', 'docking.site', "
+        "'docking.setup', 'docking.poses', 'docking.scorer', "
+        "'docking.shoot', 'density', 'sfc_mesh']\n"
         "missing = [m for m in need if 'molchanica_tpu_torch.' + m "
         "not in sys.modules]\n"
         "print(len([m for m in sys.modules "

@@ -144,8 +144,28 @@ Phases, each printed on lines of its own:
      through density_map_from_sf on the card, sample_density at the atoms
      card vs CPU, density_rect around the ligand, the molecular surface of
      the site-culled receptor;
- 37. the kernel JSON line, the card line, and the final JSON result line.
-     Phases 24-29 and H-M launch no hand-written kernel: the JAX package
+ 37. N: the README's quick start on the committed ligand (ibuprofen):
+     open_file, MolDynamics, build_dynamics with Langevin-middle at 310 K
+     in OPC (FIRE 200, float32) at a pad of 11 A (2,289 sites, cells_pme;
+     the README's 10 A gives 1,973 sites on allpairs_cutoff: printed,
+     and its force card vs CPU at phase 28's gate), its force on the card
+     against the CPU at the initial state (phase 10's gate), then
+     run_dynamics_blocking(sim, 0.002, 400, 100):
+     method, sites, box, FIRE wall time, ms/step, ns/day; finite, T in
+     band, rigid waters, four snapshots;
+ 38. O: the same ligand on K2: the 35 A cube refused by K2's plan (no
+     fallback), then build_dynamics in the 36 A cube with use_pallas
+     (cells_pme, ~5.3k sites, FIRE on K2), K2 against its plain version on
+     its grid, 400 + 200 (timed) steps with launches equal to the force
+     evaluations;
+ 39. P: a checkpoint of O's card state restored bit for bit and two
+     20-step continuations bitwise equal; launch_md of 20 more steps on
+     its thread; N's snapshots written as DCD, TRR, XTC and GRO and read
+     back (GRO through io.gro.read_gro_trajectory, the rest through
+     Trajectory) within each format's precision;
+     SnapshotViewer on the DCD;
+ 40. the kernel JSON line, the card line, and the final JSON result line.
+     Phases 24-29, H-N launch no hand-written kernel: the JAX package
      computes their direct space, scorer, shots and density in XLA (or
      numpy), so the port does it in plain torch.
 An NVT hold (the mean temperature of further FastSim steps near 310 K)
@@ -239,7 +259,12 @@ K2_GRIDS = (("C=128", 1, (30.0, 31.0, 32.0), 7.0, 0.1),
 K2_GRID_MOVE = 0.3
 K2_GRID_COUPLE = 0.5
 K2_GRID_COUPLED = 5
-N_TIMED = 500
+# step counts of the earlier phases were cut (FastSim's timed call from
+# 500, the TI windows' production from 60, the vacuum run from 2,000:
+# run() keeps its four snapshots only where n/4 ends one of its chunks of
+# 100 steps; the MD shots from 6) when the user-layer phases N-P (~80 s)
+# took the whole script to 769 s on one H100
+N_TIMED = 300
 N_WARM = 100
 N_MD_TIMED = 200
 N_MD_WARM = 40
@@ -258,7 +283,7 @@ ENGINE_TOL_F, ENGINE_TOL_DIRECT = 1e-4, 1e-5
 # TI_DHDL_INTERVAL; K1d held at two couplings where the softcore is large
 TI_SEED = 3
 N_TI_EQUIL = 40
-N_TI_PROD = 60
+N_TI_PROD = 40
 TI_DHDL_INTERVAL = 20
 ALCH_COUPLES = (0.5, 0.05)
 # dhdl is a float32 central difference (h = 1e-3): card vs CPU within
@@ -296,7 +321,7 @@ N_NPT_STEPS = 200
 N_MDD_WARM = 40
 N_MDD_STEPS = 100
 N_MDD_NPT_STEPS = 200
-N_VAC_STEPS = 2000
+N_VAC_STEPS = 800
 N_MDD_ALCH_STEPS = 20
 # phases G-J (the replica farm): G's replicas, warm-up and timed farm
 # steps, and the farm steps of each profiler window; H's run_sol_sim step
@@ -342,8 +367,8 @@ DOCK_TOP = 10
 # float32, FIRE 200); the reference's dock_md_multi runs 8. On one H100
 # a shot took 9.4-13.6 s (9-16 ms per step, host-bound, FIRE ~2-3 s), so
 # 8 shots (108.9 s on the slower host) overrun phases K-M's budget of
-# about 120 s beside K's ~20 s, and 6 fit
-N_SHOTS = 6
+# about 120 s beside K's ~20 s; 6 fit until phases N-P came, then 4
+N_SHOTS = 4
 # phase M: the receptor's density in a cubic cell with DENSITY_MARGIN A on
 # each side at about DENSITY_STEP A spacing, card vs CPU within DENSITY_TOL
 # of max|rho|; atomic numbers of the fixture's elements
@@ -391,6 +416,37 @@ SYM_TOL_F64, SYM_TOL_F = 1e-9, 2e-5
 SYM_PAIRS_SLACK = 1e-6
 # rigid waters after the NPT run: |d(O-H) - r_OH| (A)
 RIGID_TOL = 5e-3
+# phases N-P: the quick start (README) on the committed ligand, its
+# run_dynamics_blocking(sim, 0.002, N_QS_STEPS, N_QS_STEPS // 4) at a pad
+# of QS_PAD A. The README's pad of 10 A holds 485 OPC waters, 1,973 sites:
+# under select_method's 2,048, so allpairs_cutoff (Coulomb cut at 9 A, no
+# PME), where it heats to 1,652 K in 60 steps on one H100 (the --witness
+# of scripts/user_layer_phases.py) and the JAX package's own quick start
+# to 1,342 K in 50 (tests/test_torch_user_layer.py, the slow
+# test_reference_quick_start_heats); 11 A is the smallest pad that
+# reaches PME (2,289 sites, the cluster backend). A fresh water fill
+# after FIRE releases heat in its first steps, which Langevin at gamma
+# 1/ps bleeds off over a few ps (on one H100: 665 K at step 100, 584 K
+# at 200, 498 K at 400, 391 K at 1,000; the JAX package on the CPU reads
+# 731 K at step 100): hence 400 steps (the README runs 20,000), a
+# snapshot every 100 (run() chunks at 100 steps, and an interval must
+# end a chunk). Then the same ligand on K2 in a cube of O_BOX A, N_O_WARM
+# + N_O_STEPS steps (the hydration protocol's 35 A box holds a cell of
+# 241 sites at the 9 A cutoff, over K2's 256 slots less its 15% headroom,
+# so MdSim refuses it: 36 A is the nearest cube whose 4^3 cells of 9 A
+# K2 takes, 5,293 sites); then N_CKPT_STEPS steps from a checkpoint of
+# O's state, twice, and N_CKPT_STEPS through launch_md
+QS_PAD, QS_README_PAD = 11.0, 10.0
+N_QS_STEPS = 400
+O_BOX, O_REFUSED_BOX = 36.0, 35.0
+N_O_WARM, N_O_STEPS = 400, 200
+N_CKPT_STEPS = 20
+# the two continuations from a restored checkpoint on the card must be
+# bitwise equal: K2 is deterministic, and so is the rest of O's step on
+# one H100 (max|dx| and max|dv| 0 over 20 steps), so the gate is zero.
+# Trajectory formats read back: XTC at precision 1000/nm (0.5e-3 nm), GRO
+# at 3 decimals in nm; DCD and TRR store float32
+XTC_PRECISION = 1000.0
 
 
 def say(*a):
@@ -899,7 +955,7 @@ def k2_grid_phase(torch, np, dev="cuda"):
     return out
 
 
-def md_path(md, calls, torch, np):
+def md_path(md, calls, torch, np, tag="md"):
     """The MdSim path: md.step(0.002, n) for each n in calls, K2 launches
     counted over exactly those calls; the last call timed."""
     from molchanica_tpu_torch.ops.direct_force import DirectForce
@@ -912,7 +968,7 @@ def md_path(md, calls, torch, np):
         t0 = time.perf_counter()
         md.step(dt, n)
         torch.cuda.synchronize()
-        say(f"[md] warm-up {n} steps in {time.perf_counter() - t0:.1f} s")
+        say(f"[{tag}] warm-up {n} steps in {time.perf_counter() - t0:.1f} s")
     n = calls[-1]
     t0 = time.perf_counter()
     md.step(dt, n)
@@ -931,10 +987,10 @@ def md_path(md, calls, torch, np):
     x = md.state.positions
     finite = bool(torch.isfinite(x).all())
     ovf = int(md._rebuild(x, md.state.box)[2])
-    say(f"[md] n={n} ms/step={ms_step:.4f} ns/day={ns_day:.3f} "
+    say(f"[{tag}] n={n} ms/step={ms_step:.4f} ns/day={ns_day:.3f} "
         f"T={t_final:.2f} K E_pot(last)={float(md.state.pe_last):.3f} "
         f"kcal/mol finite={finite} overflow={ovf} C={md._plan.capacity}")
-    say(f"[md] direct_force launches {launches}, force_evals {n_eval}, "
+    say(f"[{tag}] direct_force launches {launches}, force_evals {n_eval}, "
         f"expected {expected} (n + ceil(n/{k}) + 1 over the calls "
         f"{pieces} that steps {calls} make)")
     if not finite or not 100.0 < t_final < 600.0:
@@ -3184,6 +3240,33 @@ def docking_phase(torch, np):
                 n_sites=len(sites), typing_s=typing_s)
 
 
+def allpairs_parity(md_g, md_c, method, tag, torch):
+    """Phase 28's gate for a dense (allpairs or allpairs_cutoff) MdSim: its
+    force on the card against the same MdSim on the CPU at the CPU's
+    initial positions within 1e-4 of max|F|, the potential energy within
+    rel 1e-5; each energy term is printed. Returns (max|dF|, max|F|, the
+    energy's rel error)."""
+    x_c = md_c.state.positions
+    with torch.no_grad():
+        f_g, (e_g, t_g) = md_g.force_fn(x_c.to(md_g.device), md_g.state.box,
+                                        md_g.state.couple)
+        f_c, (e_c, t_c) = md_c.force_fn(x_c, md_c.state.box,
+                                        md_c.state.couple)
+    err = float((f_g.cpu() - f_c).abs().max())
+    f_max = float(f_c.abs().max())
+    e_rel = abs(float(e_g) - float(e_c)) / abs(float(e_c))
+    terms = ", ".join(
+        f"{k} {abs(float(t_g[k]) - float(t_c[k])) / abs(float(t_c[k])):.1e}"
+        for k in ("bond", "angle", "dihedral", "lj", "coulomb")
+        if float(t_c[k]) != 0.0)
+    say(f"[{tag}] method {md_g.method}; force card vs CPU max|dF|="
+        f"{err:.3e} (max|F|={f_max:.3f}); energy {float(e_g):.4f} vs "
+        f"{float(e_c):.4f} rel {e_rel:.2e}; terms rel: {terms}")
+    if md_g.method != method or err > 1e-4 * f_max or e_rel > 1e-5:
+        raise SystemExit(f"{tag}: {method} force parity failed")
+    return err, f_max, e_rel
+
+
 def shoot_phase(torch, np):
     """Phase L: on the fixture's specs and site, the assembled system of
     the first shot (its allpairs force and energy card vs CPU at phase
@@ -3193,7 +3276,7 @@ def shoot_phase(torch, np):
     finite, each shot's closest approach to the site below its start
     distance, and the closest of all below START_DIST. A shot starts
     START_DIST out, or further where the receptor is in the way (the
-    fixture's site lies inside the globule: shots 0 and 2 of 6 start 23
+    fixture's site lies inside the globule: of 6 shots, two started 23
     and 24 A out), so the receptor can stop a shot short of the site. Each MdSim
     is timed through a subclass (FIRE at construction, the step calls
     between synchronizes), which also keeps the ligand's start."""
@@ -3210,20 +3293,9 @@ def shoot_phase(torch, np):
                        device="cuda")
     md_c = shoot.MdSim(asys.topology, cfg, asys.positions, relax=False,
                        device="cpu")
-    x_c = md_c.state.positions
-    with torch.no_grad():
-        f_g, (e_g, _) = md_g.force_fn(x_c.to(md_g.device), None,
-                                      md_g.state.couple)
-        f_c, (e_c, _) = md_c.force_fn(x_c, None, md_c.state.couple)
-    err = float((f_g.cpu() - f_c).abs().max())
-    f_max = float(f_c.abs().max())
-    e_rel = abs(float(e_g) - float(e_c)) / abs(float(e_c))
-    say(f"[shoot] system {asys.topology.n_atoms_real} atoms, method "
-        f"{md_g.method}; allpairs force card vs CPU max|dF|={err:.3e} "
-        f"(max|F|={f_max:.3f}); energy {float(e_g):.4f} vs "
-        f"{float(e_c):.4f} rel {e_rel:.2e}")
-    if md_g.method != "allpairs" or err > 1e-4 * f_max or e_rel > 1e-5:
-        raise SystemExit("shot system: allpairs force parity failed")
+    say(f"[shoot] system {asys.topology.n_atoms_real} atoms")
+    err, f_max, e_rel = allpairs_parity(md_g, md_c, "allpairs", "shoot",
+                                        torch)
 
     timings = []
 
@@ -3388,6 +3460,288 @@ def density_phase(torch, np):
                 rect_dims=list(rect.dims), mesh_atoms=int(near.sum()),
                 triangles=mesh.n_triangles, area=mesh.area(),
                 mesh_s=mesh_s)
+
+
+def quickstart_build(cfg, device):
+    """The README's quick start on the committed ligand: open_file, then
+    build_dynamics of one MolDynamics with the file's elements, positions
+    and bonds under cfg on `device`. Returns (sim, molecule)."""
+    from molchanica_tpu_torch.io import open_file
+    from molchanica_tpu_torch.md.dynamics import MolDynamics, build_dynamics
+
+    mol = open_file(POCKET_SDF)
+    sim = build_dynamics([MolDynamics(elements=mol.elements,
+                                      atom_posits=mol.positions,
+                                      bonds=mol.bonds)], cfg, device=device)
+    return sim, mol
+
+
+def quickstart_cfg(pad=QS_PAD):
+    """README's MdConfig: Langevin-middle (gamma 1) at 310 K in OPC, the
+    rest default (FIRE 200 at construction, float32), at a pad of `pad`
+    A (the README's default is 10)."""
+    from molchanica_tpu_torch.md.config import (Integrator, MdConfig,
+                                                SimBoxInit, Solvent)
+    return MdConfig(integrator=Integrator.langevin_middle(gamma=1.0),
+                    temp_target=310.0, solvent=Solvent.water_opc(),
+                    sim_box=SimBoxInit.pad_(pad))
+
+
+def quickstart_phase(n_steps, torch, np):
+    """Phase N: the README's quick start on the committed ligand
+    (ibuprofen, 33 atoms): open_file, MolDynamics, build_dynamics with
+    the README's MdConfig on the card (FIRE at construction), then
+    run_dynamics_blocking(sim, 0.002, n, n/4) timed between synchronizes.
+    Prints the README's own pad's site count and method, then this pad's
+    method, real and padded sites, box, FIRE's wall time, ms/step and
+    ns/day. Gates: the cluster backend; the built system's force on the
+    card against the CPU at the initial state (md_engine_parity, phase
+    10's gate); finite positions, 100 K < T < 600 K, rigid waters, four
+    snapshots. Returns (results, sim, molecule)."""
+    from molchanica_tpu_torch.md.dynamics import run_dynamics_blocking
+
+    cfg_readme = quickstart_cfg(QS_README_PAD).replace(
+        max_init_relaxation_iters=None)
+    readme = quickstart_build(cfg_readme, "cuda")[0]
+    say(f"[N] the README's pad of {QS_README_PAD:g} A: "
+        f"{readme.assembled.topology.n_atoms_real} sites "
+        f"({readme.top.n_atoms} padded), method {readme.method}; this run "
+        f"pads {QS_PAD:g} A")
+    allpairs_parity(readme, quickstart_build(cfg_readme, "cpu")[0],
+                    "allpairs_cutoff", "N", torch)
+    del readme
+    cfg = quickstart_cfg()
+    t0 = time.perf_counter()
+    sim, mol = quickstart_build(cfg, "cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    a, r = sim.assembled, sim.relax_log
+    box = [float(v) for v in a.box_extent]
+    say(f"[N] open_file + build_dynamics {build_s:.2f} s: {mol.n_atoms} "
+        f"ligand atoms, {a.n_waters} OPC waters, "
+        f"{a.topology.n_atoms_real} real sites ({a.topology.n_atoms} "
+        f"padded), box {box[0]:.4f} x {box[1]:.4f} x {box[2]:.4f} A, "
+        f"method {sim.method} ({sim._nbr_backend}); FIRE {r['iters']} "
+        f"iterations in {r['seconds']:.2f} s ({r['path']}, kept "
+        f"{r['kept']}), E {r['e_first']:.3f} -> {r['e_last']:.3f} kcal/mol")
+    if sim._nbr_backend != "clusters":
+        raise SystemExit(f"phase N: {sim.method} {sim._nbr_backend}")
+    md_engine_parity(lambda dev: quickstart_build(
+        cfg.replace(max_init_relaxation_iters=None), dev)[0], torch)
+    interval = max(n_steps // 4, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snaps = run_dynamics_blocking(sim, 0.002, n_steps, interval)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    ms_step = elapsed / n_steps * 1e3
+    ns_day = n_steps * 0.002 / 1000.0 / elapsed * 86400.0
+    t_final = sim.temperature()
+    finite = bool(torch.isfinite(sim.state.positions).all())
+    rigid = md_rigid_error(sim, np)
+    temps = snapshot_temperatures(sim, snaps, np)
+    say(f"[N] run_dynamics_blocking(sim, 0.002, {n_steps}, {interval}): "
+        f"{ms_step:.4f} ms/step, {ns_day:.3f} ns/day, T {t_final:.2f} K, "
+        f"{len(snaps)} snapshots (T {', '.join(f'{v:.1f}' for v in temps)}"
+        f" K), rigid waters |d(O-H) - r_OH| {rigid:.2e} A, finite={finite}")
+    if not finite or not 100.0 < t_final < 600.0 or len(snaps) != 4 \
+            or not rigid < RIGID_TOL:
+        raise SystemExit(f"quick start run: finite={finite} T={t_final} "
+                         f"snapshots={len(snaps)} rigid={rigid}")
+    return dict(method=sim.method, backend=sim._nbr_backend,
+                sites=int(a.topology.n_atoms_real),
+                padded=int(a.topology.n_atoms), waters=int(a.n_waters),
+                box=box, build_s=build_s, fire_s=r["seconds"],
+                fire_iters=r["iters"], ms_per_step=ms_step,
+                ns_per_day=ns_day, temperature_K=t_final,
+                snapshot_T=temps), sim, mol
+
+
+def ligand_k2_phase(n_warm, n_steps, torch, np):
+    """Phase O: the quick start's ligand through K2: build_dynamics with
+    N's config in a fixed cube and use_pallas=True (cells_pme on the
+    cell-grid kernel, FIRE on it at construction). First the hydration
+    protocol's 35 A cube, which K2's plan refuses (no fallback); then
+    O_BOX. K2 against its plain version on the built state's grid
+    (k2_check), then md_path over n_warm and n_steps (timed) steps:
+    launches equal to the force evaluations. Returns (results, MdSim)."""
+    from molchanica_tpu_torch.md.config import SimBoxInit
+    from molchanica_tpu_torch.md.energy import apply_virtual_sites
+
+    cfg = quickstart_cfg().replace(use_pallas=True)
+    try:
+        quickstart_build(cfg.replace(
+            sim_box=SimBoxInit.new_cube(O_REFUSED_BOX)), "cuda")
+    except AssertionError as e:
+        say(f"[O] the {O_REFUSED_BOX:g} A cube on K2 is refused: {e}")
+    else:
+        raise SystemExit(f"the {O_REFUSED_BOX:g} A cube should overflow "
+                         "K2's cell capacity")
+    t0 = time.perf_counter()
+    md, _ = quickstart_build(cfg.replace(sim_box=SimBoxInit.new_cube(O_BOX)),
+                             "cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    a, r, plan = md.assembled, md.relax_log, md._plan
+    say(f"[O] build_dynamics in the {O_BOX:g} A cube with use_pallas "
+        f"{build_s:.2f} s: {a.topology.n_atoms_real} real sites "
+        f"({a.topology.n_atoms} padded), {a.n_waters} OPC waters, method "
+        f"{md.method} ({md._nbr_backend}), nc={plan.nc} C={plan.capacity};"
+        f" FIRE {r['iters']} iterations in {r['seconds']:.2f} s "
+        f"({r['path']}, kept {r['kept']}), E {r['e_first']:.3f} -> "
+        f"{r['e_last']:.3f} kcal/mol")
+    if md.method != "cells_pme" or md._nbr_backend != "pallas":
+        raise SystemExit(f"phase O: {md.method} {md._nbr_backend}")
+    s = md.state
+    xv = apply_virtual_sites(s.positions, md.top)
+    sa, _, ovf = md._rebuild(xv, s.box)
+    center, ghost = md._direct.inputs(xv, s.box, sa)
+    errs, _, _ = k2_check("O direct_force", plan, md._direct, center, ghost,
+                          s.couple, md._beta, torch)
+    res = md_path(md, [n_warm, n_steps], torch, np, tag="O")
+    res.update(sites=int(a.topology.n_atoms_real), waters=int(a.n_waters),
+               box=O_BOX, build_s=build_s, fire_s=r["seconds"],
+               fire_iters=r["iters"], k2_rel_f=errs["rel_f"],
+               overflow=int(ovf))
+    return res, md
+
+
+def checkpoint_trajectory_phase(md, sim_n, mol, torch, np):
+    """Phase P: save_checkpoint on O's card state, N_CKPT_STEPS steps,
+    load_checkpoint (the restored state equal to the saved one bit for
+    bit: positions, velocities, box, step, couple, generator state), the
+    same steps again: the two continuations bitwise equal; launch_md of
+    N_CKPT_STEPS more steps joined from its thread (K2 launched there).
+    Then N's snapshots written as DCD, TRR, XTC (XTC_PRECISION) and GRO,
+    reopened through Trajectory.open (its frame count) and
+    load_snaps(FrameSlice(start=1)), the GRO's frames through
+    io.gro.read_gro_trajectory (Trajectory.load_snaps refuses a .gro, as
+    in the JAX package), each held to its format's precision;
+    SnapshotViewer.load_trajectory and frame_at_time on the DCD."""
+    import tempfile
+
+    from molchanica_tpu_torch.io.gro import read_gro_trajectory
+    from molchanica_tpu_torch.md.checkpoint import (load_checkpoint,
+                                                    save_checkpoint)
+    from molchanica_tpu_torch.md.dynamics import launch_md
+    from molchanica_tpu_torch.md.trajectory import FrameSlice, Trajectory
+    from molchanica_tpu_torch.ops.direct_force import DirectForce
+    from molchanica_tpu_torch.md.viewer import SnapshotViewer
+
+    def host_state():
+        s = md.state
+        return dict(positions=s.positions.cpu().clone(),
+                    velocities=s.velocities.cpu().clone(),
+                    box=s.box.cpu().clone(), couple=s.couple.cpu().clone(),
+                    step=s.step, generator=s.generator.get_state().clone())
+
+    def equal(a, b):
+        return {k: (a[k] == b[k]) if k == "step" else
+                bool(torch.equal(a[k], b[k])) for k in a}
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "o.npz")
+        t0 = time.perf_counter()
+        save_checkpoint(ck, md, extra={"phase": "P"})
+        save_s = time.perf_counter() - t0
+        saved = host_state()
+        md.step(0.002, N_CKPT_STEPS)
+        first = host_state()
+        t0 = time.perf_counter()
+        load_checkpoint(ck, md)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        same = equal(host_state(), saved)
+        md.step(0.002, N_CKPT_STEPS)
+        second = host_state()
+        dx = float((first["positions"] - second["positions"]).abs().max())
+        dv = float((first["velocities"] - second["velocities"]).abs().max())
+        bitwise = all(equal(first, second).values())
+        say(f"[P] checkpoint of O's state ({os.path.getsize(ck)} bytes, "
+            f"save {save_s * 1e3:.1f} ms, load {load_s * 1e3:.1f} ms): "
+            f"restored equal to saved {same}; two {N_CKPT_STEPS}-step "
+            f"continuations: max|dx| {dx:.3e} A, max|dv| {dv:.3e} A/ps, "
+            f"bitwise {bitwise} (the gate)")
+        if not all(same.values()):
+            raise SystemExit(f"checkpoint restore differs: {same}")
+        if not bitwise:
+            raise SystemExit(f"checkpoint continuations part by {dx} A")
+        out.update(ckpt_bytes=os.path.getsize(ck), ckpt_dx=dx, ckpt_dv=dv,
+                   ckpt_bitwise=bitwise)
+
+        # launch_md: the same sim stepped from a background thread
+        n0, k0, s0 = md.step_count, DirectForce.launches, len(md.snapshots)
+        t0 = time.perf_counter()
+        handle = launch_md(md, 0.002, N_CKPT_STEPS, N_CKPT_STEPS // 2)
+        handle.join(timeout=300)
+        torch.cuda.synchronize()
+        say(f"[P] launch_md({N_CKPT_STEPS} steps) joined in "
+            f"{time.perf_counter() - t0:.2f} s: running {handle.running}, "
+            f"steps {md.step_count - n0}, snapshots {len(md.snapshots) - s0}"
+            f", K2 launches in the thread {DirectForce.launches - k0}")
+        if handle.running or md.step_count != n0 + N_CKPT_STEPS \
+                or len(md.snapshots) != s0 + 2 or DirectForce.launches == k0:
+            raise SystemExit("launch_md on the card")
+
+        snaps = sim_n.snapshots
+        traj = Trajectory.from_memory(snaps)
+        want = np.stack([Trajectory._frame_coords(s) for s in snaps])
+        n_w = 0 if snaps[0].water_o_posits is None else \
+            len(snaps[0].water_o_posits)
+        elements = list(mol.elements) + ["O", "H", "H"] * n_w
+        eps32 = float(np.finfo(np.float32).eps)
+        x_max = float(np.abs(want).max())
+        # GRO rounds the float32 quotient x / 10 (nm) to 3 decimals
+        tols = {"dcd": 0.0, "trr": 2.0 * eps32 * x_max,
+                "xtc": 10.0 * 0.5 / XTC_PRECISION + 1e-6,
+                "gro": 10.0 * 0.5e-3 + 2.0 * eps32 * x_max}
+        dt_snap = snaps[1].time - snaps[0].time
+        for fmt, tol in tols.items():
+            path = os.path.join(tmp, f"n.{fmt}")
+            t0 = time.perf_counter()
+            if fmt == "gro":
+                traj.save_gro(path, elements)
+            elif fmt == "xtc":
+                traj.save_xtc(path, precision=XTC_PRECISION)
+            else:
+                getattr(traj, f"save_{fmt}")(path)
+            write_s = time.perf_counter() - t0
+            reopened = Trajectory.open(path)
+            if fmt == "gro":
+                # as in the JAX package, Trajectory counts a .gro's frames
+                # and its load_snaps refuses them
+                frames, boxes = read_gro_trajectory(path)
+                got, got_box = frames[1:], boxes[1:]
+            else:
+                back = reopened.load_snaps(FrameSlice(start=1))
+                got = np.stack([s.atom_posits for s in back])
+                got_box = np.stack([s.box_extent for s in back])
+            err = float(np.abs(got - want[1:]).max()) \
+                if got.shape == want[1:].shape else float("inf")
+            box_err = float(np.abs(got_box - snaps[0].box_extent).max())
+            say(f"[P] {fmt}: {reopened.n_frames} frames, {len(got)} read "
+                f"from the second on, of {want.shape[1]} sites "
+                f"({os.path.getsize(path)} bytes, written in "
+                f"{write_s * 1e3:.1f} ms), max|dx| {err:.3e} A (limit "
+                f"{tol:.3e}), box {box_err:.1e}")
+            if reopened.n_frames != len(snaps) or len(got) != len(snaps) - 1 \
+                    or not err <= tol or not box_err <= max(tol, 1e-4):
+                raise SystemExit(f"{fmt} read back: {len(got)} frames, "
+                                 f"max|dx| {err}, box {box_err}")
+            out[f"{fmt}_err"] = err
+        viewer = SnapshotViewer().load_trajectory(
+            os.path.join(tmp, "n.dcd"), dt_ps=dt_snap)
+        hits = [viewer.frame_at_time(s.time - snaps[0].time + 0.3 * dt_snap)
+                for s in snaps]
+        say(f"[P] SnapshotViewer: {len(viewer.snapshots)} frames from the "
+            f"DCD, frame_at_time of each snapshot's time: {hits}")
+        if len(viewer.snapshots) != len(snaps) \
+                or hits != list(range(len(snaps))) \
+                or not np.array_equal(viewer.get_active_snap().atom_posits,
+                                      want[0]):
+            raise SystemExit("SnapshotViewer on the DCD")
+    return out
 
 
 def main():
@@ -3721,7 +4075,24 @@ def main():
     # ---- 36. M: density and surface ----
     density = density_phase(torch, np)
 
-    # ---- 37. results ----
+    # ---- 37. N: the quick start (README) on the card ----
+    t_nop = time.perf_counter()
+    quick, sim_n, mol_n = quickstart_phase(N_QS_STEPS, torch, np)
+
+    # ---- 38. O: the quick start's ligand on K2 ----
+    t0 = time.perf_counter()
+    lig_k2, md_o = ligand_k2_phase(N_O_WARM, N_O_STEPS, torch, np)
+    k2["launches_phase_o"] = lig_k2["launches"]
+    say(f"[phases] N {t0 - t_nop:.1f} s, O {time.perf_counter() - t0:.1f} s")
+
+    # ---- 39. P: checkpoint, trajectory files and the viewer ----
+    t0 = time.perf_counter()
+    ckpt_traj = checkpoint_trajectory_phase(md_o, sim_n, mol_n, torch, np)
+    del md_o, sim_n
+    say(f"[phases] P {time.perf_counter() - t0:.1f} s; N-P "
+        f"{time.perf_counter() - t_nop:.1f} s")
+
+    # ---- 40. results ----
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     if args.profile:
@@ -3744,6 +4115,8 @@ def main():
                            vacuum=vac, alch_md=alch_md, farm_k2=farm_k2,
                            farm_h=farm_h, logp=logp, properties=props,
                            docking=docking, density=density,
+                           quickstart=quick, ligand_k2=lig_k2,
+                           checkpoint_trajectory=ckpt_traj,
                            kernels=entries),
                       fh, indent=1)
     say(json.dumps({"kernels": [

@@ -163,7 +163,8 @@ def test_port_imports_no_jax():
     the hydration path, the parallel package with the replica farm, the
     batch workloads of properties/, the barostat, snapshots, the probe,
     the PDB / SDF readers and GAFF2 chain, docking, density and the
-    surface mesher among them), and chip_smoke, import without loading
+    surface mesher, the other file formats, checkpoints, Trajectory and
+    SnapshotViewer among them), and chip_smoke, import without loading
     jax, flax or any molchanica_tpu module."""
     code = (
         "import pkgutil, importlib, sys\n"
@@ -189,7 +190,9 @@ def test_port_imports_no_jax():
         "'molecules.pocket', 'ff.amber_dat', 'ff.data.gaff2_subset', "
         "'ff.typing_gaff', 'ff.charges', 'ff.params', 'docking.site', "
         "'docking.setup', 'docking.poses', 'docking.scorer', "
-        "'docking.shoot', 'density', 'sfc_mesh']\n"
+        "'docking.shoot', 'density', 'sfc_mesh', 'io.xyz', 'io.mol2', "
+        "'io.gro', 'io.mmcif', 'io.dcd', 'io.trr', 'io.xtc', 'io.prmtop', "
+        "'md.checkpoint', 'md.trajectory', 'md.viewer']\n"
         "missing = [m for m in need if 'molchanica_tpu_torch.' + m "
         "not in sys.modules]\n"
         "print(len([m for m in sys.modules "

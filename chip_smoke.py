@@ -164,10 +164,38 @@ Phases, each printed on lines of its own:
      back (GRO through io.gro.read_gro_trajectory, the rest through
      Trajectory) within each format's precision;
      SnapshotViewer on the DCD;
- 40. the kernel JSON line, the card line, and the final JSON result line.
-     Phases 24-29, H-N launch no hand-written kernel: the JAX package
-     computes their direct space, scorer, shots and density in XLA (or
-     numpy), so the port does it in plain torch.
+ 40. Q: screening: the committed therapeutic CSVs' 269 unique SMILES
+     through from_smiles and write_sdf into a directory, then
+     screen_ligs(auto_pharmacophore(ibuprofen), directory) on the card at
+     its defaults (8 conformers, align): every ligand read and scored,
+     the ligands that fall back (host preparation failed) the CPU port's,
+     ligands/s, ms per ligand, peak memory; the first 32 ligands screened
+     by the CPU port too: scores within 1e-9, each conformer's vacuum
+     energy card vs CPU within 1e-5 of its sum of |terms|, the conformer
+     candidates bit for bit, a best-conformer index apart only between
+     the same candidate ranked by energies within that gate; one batch of
+     8 conformers under the profiler (device ms, kernels, busy share);
+     generate_conformers' defaults (32, FIRE 200 on the best) on the
+     library's largest molecule (also its most flexible, 14 torsions) and
+     the most flexible of the rest: the best energy lowered or kept,
+     finite, the force at the final state on the card within 1e-4 of
+     max|F| of the CPU's float64 force plus 4 x the CPU's own float32
+     error (phase E's gate at a relaxed state);
+ 41. R: flexible_align of the top hit onto ibuprofen at its defaults
+     (FIRE 200, 400 steps of 1 fs, k_pull 10): finite, the matched-pair
+     RMSD after the pulled steps below its value after FIRE (which runs
+     without the pull and leaves the rigid prealignment, as in the
+     reference; the rigid RMSD printed beside), the force with the pull
+     card vs CPU at the prealigned state within 1e-4 of max|F|, ms/step
+     and FIRE s; find_hydrogen_bonds on N's last snapshot with its box:
+     non-empty, every D-A <= 3.5 A and angle >= 120 deg; make_gromacs_input
+     of N's assembled system: the .gro read back within 0.5e-3 nm plus
+     float32 rounding, the .top's [ molecules ] counts the system's;
+ 42. the kernel JSON line, the card line, and the final JSON result line.
+     Phases 24-29, H-N and Q-R launch no hand-written kernel: the JAX
+     package computes their direct space, scorer, shots, density and
+     conformer energies in XLA (or numpy), so the port does it in plain
+     torch.
 An NVT hold (the mean temperature of further FastSim steps near 310 K)
 runs only when --hold N asks for it.
 
@@ -199,6 +227,7 @@ checkout of the repository, or when any phase fails.
 """
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import subprocess
@@ -447,6 +476,31 @@ N_CKPT_STEPS = 20
 # Trajectory formats read back: XTC at precision 1000/nm (0.5e-3 nm), GRO
 # at 3 decimals in nm; DCD and TRR store float32
 XTC_PRECISION = 1000.0
+# phases Q-R: screening on the card. The library is the unique SMILES of
+# the committed therapeutic CSVs (269), each through from_smiles and
+# write_sdf into one directory that screen_ligs reads at its defaults (8
+# conformers, align); the pharmacophore is auto_pharmacophore of the
+# committed ligand (ibuprofen, 6 features). The CPU port screens the first
+# N_SCREEN_CPU ligands too: scores within SCREEN_SCORE_TOL (the scorer is
+# the same host code on the same coordinates), each conformer's float32
+# vacuum energy within SCREEN_ENERGY_TOL of its sum of |terms| (bond,
+# angle, dihedral, lj, coulomb). A force card vs CPU (FIRE's final
+# conformer, the alignment's prealigned state with its pull) within
+# CONF_TOL_F of max|F|, phase 28's gate for a dense vacuum force; at
+# FIRE's final conformer, where max|F| is ~1, the card's float32 force is
+# held to the CPU's float64 one within CONF_TOL_F of max|F| plus
+# CONF_FLOORS x the CPU's own float32 error against it (the card's error
+# read 0.97-0.98 x the CPU's on both molecules). The pull alone, card
+# against float64 from the template, within PULL_ULPS x eps32 x k_pull
+# (max|target| + max|x - target|), the rounding of its two float32 ops
+SCREEN_CSV_GLOB = os.path.join(ROOT, "molchanica_tpu", "therapeutic",
+                               "data", "*.csv")
+N_SCREEN_CPU = 32
+SCREEN_SCORE_TOL = 1e-9
+SCREEN_ENERGY_TOL = 1e-5
+CONF_TOL_F = 1e-4
+CONF_FLOORS = 2.0
+PULL_ULPS = 2.0
 
 
 def say(*a):
@@ -3744,6 +3798,438 @@ def checkpoint_trajectory_phase(md, sim_n, mol, torch, np):
     return out
 
 
+def screening_library():
+    """The committed therapeutic CSVs' unique SMILES, sorted."""
+    import csv
+    import glob
+
+    smiles = set()
+    for path in sorted(glob.glob(SCREEN_CSV_GLOB)):
+        with open(path) as fh:
+            smiles.update(row["smiles"] for row in csv.DictReader(fh))
+    return sorted(smiles)
+
+
+def conformer_force(prep, coords, device, torch):
+    """The vacuum force [n, 3] (on the CPU), energy and sum of |terms| of
+    one conformer (its real rows, numpy) as generate_conformers' FIRE sees
+    them on `device`."""
+    from molchanica_tpu_torch.md.energy import make_force_fn
+    from molchanica_tpu_torch.molecules.conformers import (TERM_KEYS,
+                                                           _padded,
+                                                           vacuum_energy_fn)
+
+    e_fn, couple, n_pad = vacuum_energy_fn(prep, device)
+    f, (e, terms) = make_force_fn(e_fn)(
+        _padded(coords.astype("float32"), n_pad, couple.dtype, device),
+        None, couple)
+    scale = sum(abs(float(terms[k])) for k in TERM_KEYS)
+    return f[:prep.n_atoms].cpu(), float(e), scale
+
+
+def screening_phase(torch, np):
+    """Phase Q: screen_ligs(auto_pharmacophore(ibuprofen), library_dir) on
+    the card over the committed library, its CPU twin on the first
+    N_SCREEN_CPU ligands, and generate_conformers' defaults with FIRE on
+    the library's largest molecule and the most flexible of the rest.
+    Returns (results, the hits, the library's molecules by name, the
+    pharmacophore's ligand)."""
+    import dataclasses
+    import tempfile
+
+    from molchanica_tpu_torch.io import open_file, write_sdf
+    from molchanica_tpu_torch.molecules.conformers import (
+        conformer_energies, generate_conformers, prepare_conformers)
+    from molchanica_tpu_torch.molecules.smiles import from_smiles
+    from molchanica_tpu_torch.screening import auto_pharmacophore, screen_ligs
+    from molchanica_tpu_torch.screening.screen import _iter_ligands
+
+    out = {}
+    library = screening_library()
+    t0 = time.perf_counter()
+    mols = [from_smiles(s) for s in library]
+    out["from_smiles_s"] = time.perf_counter() - t0
+    template = open_file(POCKET_SDF)
+    ph = auto_pharmacophore(template)
+    say(f"[Q] library: {len(library)} unique SMILES of the committed CSVs, "
+        f"from_smiles {out['from_smiles_s']:.2f} s, {min(m.n_atoms for m in mols)}-"
+        f"{max(m.n_atoms for m in mols)} atoms; {ph.summary()}")
+    if len(ph.features) != 6:
+        raise SystemExit(f"auto_pharmacophore: {len(ph.features)} features")
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, m in enumerate(mols):
+            write_sdf(m, os.path.join(tmp, f"lig{k:03d}.sdf"))
+        ligs = _iter_ligands(tmp)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        hits = screen_ligs(ph, tmp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fallback = sorted(h.name for h in hits if h.fallback)
+    by_name = {m.name: m for m in ligs}
+    # the CPU port's host preparation of every ligand: the ligands it
+    # falls back on
+    cpu_fallback = []
+    for m in ligs:
+        try:
+            prepare_conformers(m, n_conformers=8)
+        except Exception:
+            cpu_fallback.append(m.name)
+    out.update(ligands=len(hits), read=len(ligs), wall_s=wall,
+               ligands_per_s=len(hits) / wall,
+               ms_per_ligand=wall / len(hits) * 1e3, peak_gib=peak,
+               fallback=fallback, top=[(h.name, h.score, h.conformer)
+                                       for h in hits[:5]])
+    say(f"[Q] screen_ligs over the directory on the card: {len(hits)} hits "
+        f"of {len(ligs)} ligands read in {wall:.2f} s = "
+        f"{out['ligands_per_s']:.2f} ligands/s, "
+        f"{out['ms_per_ligand']:.2f} ms/ligand, peak {peak:.3f} GiB; "
+        f"fallback {fallback} (CPU port's {sorted(cpu_fallback)}); top "
+        + ", ".join(f"{h.name} {h.score:.4f} (conformer {h.conformer})"
+                    for h in hits[:3]))
+    if len(ligs) != len(library) or len(hits) != len(library) \
+            or fallback != sorted(cpu_fallback):
+        raise SystemExit(f"phase Q: {len(ligs)} read, {len(hits)} hits, "
+                         f"fallback {fallback} vs {cpu_fallback}")
+
+    # the card against the CPU port on the first ligands
+    first = ligs[:N_SCREEN_CPU]
+    t0 = time.perf_counter()
+    cpu_hits = {h.name: h for h in screen_ligs(ph, first, device="cpu")}
+    cpu_s = time.perf_counter() - t0
+    card_hits = {h.name: h for h in hits}
+    worst_score, worst_e, swaps = 0.0, 0.0, 0
+    for m in first:
+        g, c = card_hits[m.name], cpu_hits[m.name]
+        worst_score = max(worst_score, abs(g.score - c.score))
+        if g.fallback or c.fallback:
+            if g.fallback != c.fallback or g.conformer != c.conformer:
+                raise SystemExit(f"{m.name}: fallback {g} vs {c}")
+            continue
+        prep = prepare_conformers(m, n_conformers=8)
+        e_g, t_g = conformer_energies(prep, torch.device("cuda"))
+        e_c, t_c = conformer_energies(prep, torch.device("cpu"))
+        scale = sum(v.abs() for v in t_c.values())
+        err = ((e_g.cpu() - e_c).abs() / scale).max()
+        worst_e = max(worst_e, float(err))
+        cs_g = generate_conformers(m, n_conformers=8)
+        cs_c = generate_conformers(m, n_conformers=8, device="cpu")
+        rows_g = cs_g.coords.reshape(len(cs_g.coords), -1)
+        rows_c = cs_c.coords.reshape(len(cs_c.coords), -1)
+        same = np.array_equal(rows_g[np.lexsort(rows_g.T[::-1])],
+                              rows_c[np.lexsort(rows_c.T[::-1])])
+        if not same or float(err) > SCREEN_ENERGY_TOL:
+            raise SystemExit(f"{m.name}: conformers equal {same}, energy "
+                             f"err {float(err):.3e} of sum|terms|")
+        if g.conformer != c.conformer:
+            # the same candidate, ranked apart by energies within the gate
+            lo, hi = sorted((g.conformer, c.conformer))
+            gap = float(cs_g.energies[hi] - cs_g.energies[lo])
+            tol = 2.0 * SCREEN_ENERGY_TOL * float(scale.max())
+            swaps += 1
+            if not np.array_equal(cs_g.coords[g.conformer],
+                                  cs_c.coords[c.conformer]) or gap > tol:
+                raise SystemExit(f"{m.name}: conformer {g.conformer} vs "
+                                 f"{c.conformer}, energy gap {gap} > {tol}")
+    out.update(cpu_ligands=len(first), cpu_s=cpu_s,
+               max_score_err=worst_score, max_energy_err=worst_e,
+               conformer_swaps=swaps)
+    say(f"[Q] first {len(first)} ligands on the CPU port in {cpu_s:.2f} s: "
+        f"max|d score| {worst_score:.3e} (limit {SCREEN_SCORE_TOL:g}), "
+        f"energies max {worst_e:.3e} of sum|terms| (limit "
+        f"{SCREEN_ENERGY_TOL:g}), conformer candidates bit for bit, "
+        f"{swaps} best-conformer indices apart within the energy gate")
+    if worst_score > SCREEN_SCORE_TOL:
+        raise SystemExit(f"screen scores card vs CPU {worst_score}")
+
+    # one conformer batch of the median ligand under the profiler
+    typical = sorted(ligs, key=lambda m: m.n_atoms)[len(ligs) // 2]
+    prep = prepare_conformers(typical, n_conformers=8)
+    conformer_energies(prep, torch.device("cuda"))
+    _, _, _, dev_ms, kernels, wall_ms = profile_calls(
+        lambda: conformer_energies(prep, torch.device("cuda")), torch)
+    out.update(batch_atoms=typical.n_atoms, batch_device_ms=dev_ms,
+               batch_kernels=kernels, batch_wall_ms=wall_ms,
+               batch_busy=dev_ms / wall_ms)
+    say(f"[Q] one batch of 8 conformers ({typical.name}, {typical.n_atoms} "
+        f"atoms, {prep.topology.n_atoms} padded): device {dev_ms:.3f} ms "
+        f"in {kernels} kernels, wall {wall_ms:.3f} ms, busy "
+        f"{100.0 * dev_ms / wall_ms:.1f}%")
+
+    # generate_conformers' defaults (32, FIRE on the best)
+    torsions = {m.name: len(prepare_conformers(m, n_conformers=1).torsions)
+                for m in ligs if m.name not in fallback}
+    # the largest molecule is also the most flexible (14 torsions), so the
+    # second is the most flexible of the rest
+    largest = max(ligs, key=lambda m: m.n_atoms)
+    flexible = max((m for m in ligs if m.name in torsions
+                    and m is not largest), key=lambda m: torsions[m.name])
+    out["minimized"] = []
+    for tag, m in (("largest", largest), ("next most flexible", flexible)):
+        prep = prepare_conformers(m)
+        cs0 = generate_conformers(m)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cs = generate_conformers(m, minimize_best=True)
+        torch.cuda.synchronize()
+        fire_s = time.perf_counter() - t0
+        # at FIRE's final state the force (~1 kcal/mol/A) is a sum of
+        # bonded and pair forces of ~100 whose float32 roundoff is ~1e-4:
+        # there the card's float32 force is held to the CPU's float64 force
+        # within CONF_TOL_F of max|F| plus CONF_FLOORS x the CPU's own
+        # float32 error against it
+        prep64 = dataclasses.replace(prep,
+                                     cfg=prep.cfg.replace(dtype="float64"))
+        f_g, e_g, scale = conformer_force(prep, cs.coords[0], "cuda", torch)
+        f_c, e_c, _ = conformer_force(prep, cs.coords[0], "cpu", torch)
+        f_64, _, _ = conformer_force(prep64, cs.coords[0], "cpu", torch)
+        err = float((f_g - f_c).abs().max())
+        err64 = float((f_g.double() - f_64).abs().max())
+        floor = float((f_c.double() - f_64).abs().max())
+        f_max = float(f_64.abs().max())
+        lim = CONF_TOL_F * f_max + CONF_FLOORS * floor
+        e0, e1 = float(cs0.energies[0]), float(cs.energies[0])
+        finite = bool(np.isfinite(cs.coords).all()
+                      and np.isfinite(cs.energies).all())
+        say(f"[Q] {tag}: {m.name} ({m.n_atoms} atoms, {torsions[m.name]} "
+            f"torsions), 32 conformers + FIRE 200 in {fire_s:.2f} s: best "
+            f"{e0:.4f} -> {e1:.4f} kcal/mol; force at the card's final "
+            f"state card vs CPU float32 max|dF| {err:.3e}, vs CPU float64 "
+            f"{err64:.3e} against {lim:.3e} (1e-4 of max|F| {f_max:.3e} + "
+            f"{CONF_FLOORS:g} x the CPU's float32 error {floor:.3e}; "
+            f"card over CPU error {err64 / floor:.2f})")
+        if not finite or e1 > e0 + SCREEN_ENERGY_TOL * scale \
+                or not err64 <= lim:
+            raise SystemExit(f"minimize_best on {m.name}: finite={finite} "
+                             f"{e0} -> {e1}, max|dF| {err64} against {lim}")
+        out["minimized"].append(dict(
+            name=m.name, atoms=m.n_atoms, torsions=torsions[m.name],
+            fire_s=fire_s, e_best=e0, e_min=e1, max_df=err,
+            max_df_f64=err64, f32_floor=floor, max_f=f_max))
+    return out, hits, by_name, template
+
+
+def align_hit(hits, template):
+    """The best hit that is typed (not a fallback) and is not the
+    pharmacophore's own ligand: the library holds ibuprofen, whose rigid
+    prealignment onto the template is already exact, so the flexible
+    stage has nothing to improve there."""
+    from molchanica_tpu_torch.molecules.smiles import to_smiles
+
+    own = to_smiles(template)
+    return next(h for h in hits if not h.fallback
+                and h.name not in (own, template.name))
+
+
+def hbond_inputs(sim, mol, np):
+    """Elements, positions, bonds and box of an MdSim's last snapshot of
+    the ligand in water (its M sites left out, as the writers do)."""
+    from molchanica_tpu_torch.md.trajectory import Trajectory
+
+    snap = sim.snapshots[-1]
+    x = Trajectory._frame_coords(snap)
+    n_w = 0 if snap.water_o_posits is None else len(snap.water_o_posits)
+    n = mol.n_atoms
+    elements = list(mol.elements) + ["O", "H", "H"] * n_w
+    bonds = list(mol.bonds) + [(n + 3 * k, n + 3 * k + h)
+                               for k in range(n_w) for h in (1, 2)]
+    return dict(elements=elements, positions=np.asarray(x, float),
+                bonds=bonds, box=np.asarray(snap.box_extent, float),
+                time=snap.time)
+
+
+def alignment_tools_phase(hit, template, hb, asys, cfg, mol_n, torch, np):
+    """Phase R: flexible_align of the top hit onto the pharmacophore's
+    ligand at its defaults (FIRE 200 at construction, 400 steps of 1 fs,
+    k_pull 10) on the card, the matched-pair RMSD after the pulled steps
+    below its value after FIRE; its force with the pull on the card against
+    the CPU at the rigid prealignment, and the pull alone, on the card,
+    against float64 from the template and the matched pairs, at the
+    prealignment and at the end of the pulled steps; find_hydrogen_bonds
+    on phase N's
+    last snapshot with its box; make_gromacs_input of N's assembled
+    system read back through read_gro."""
+    import tempfile
+
+    from molchanica_tpu_torch.analysis import find_hydrogen_bonds
+    from molchanica_tpu_torch.io.gro import read_gro
+    from molchanica_tpu_torch.io.gromacs import make_gromacs_input
+    from molchanica_tpu_torch.md import engine
+    from molchanica_tpu_torch.molecules.alignment import (alignment_sim,
+                                                          flexible_align,
+                                                          rigid_align)
+
+    out = {}
+    k_pull = inspect.signature(flexible_align).parameters["k_pull"].default
+    x_t = np.asarray(template.positions, float)
+
+    def pull_err(sim, pairs):
+        """The sim's pull at its state against -k_pull (x_i - t_j) in
+        float64 over the matched pairs (zero elsewhere), and its limit."""
+        if not pairs:
+            return 0.0, 0.0, 0.0
+        x = sim.state.positions
+        with torch.no_grad():
+            f_p = sim.external_forces_fn(x).double().cpu().numpy()
+        x = x.double().cpu().numpy()
+        want = np.zeros_like(x)
+        ia = [p[0] for p in pairs]
+        ib = [p[1] for p in pairs]
+        want[ia] = -k_pull * (x[ia] - x_t[ib])
+        eps32 = float(np.finfo(np.float32).eps)
+        lim = PULL_ULPS * eps32 * k_pull * (
+            float(np.abs(x_t[ib]).max()) + float(np.abs(want).max()) / k_pull)
+        return float(np.abs(f_p - want).max()), lim, float(
+            np.abs(want).max())
+
+    # the card's force, pull included, against the CPU's at the prealigned
+    # state (one clash there makes max|F| ~1e4); the pull alone, card
+    # against CPU and against float64, in units of its own size
+    sims = {}
+    for d in ("cuda", "cpu"):
+        sims[d], _, pairs = alignment_sim(hit, template, device=d,
+                                          relax=False)
+    x_c = sims["cpu"].state.positions
+    f, f_pull = {}, {}
+    for d, sim in sims.items():
+        x = x_c.to(sim.device)
+        s = sim.state
+        with torch.no_grad():
+            f_pull[d] = sim.external_forces_fn(x)
+            f_d = sim.force_fn(x, s.box, s.couple)[0] + f_pull[d]
+        f[d] = f_d[:hit.n_atoms].cpu()
+        f_pull[d] = f_pull[d].cpu()
+    err = float((f["cuda"] - f["cpu"]).abs().max())
+    f_max = float(f["cpu"].abs().max())
+    err_pull_cpu = float((f_pull["cuda"] - f_pull["cpu"]).abs().max())
+    err_pull0, lim_pull0, pull_max0 = pull_err(sims["cuda"], pairs)
+    del sims
+
+    timing = dict(steps=0, step_s=0.0)
+
+    class Timed(engine.MdSim):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self._outer = True
+            timing["fire_s"] = self.relax_log["seconds"]
+            timing["x_fire"] = self.state.positions[:hit.n_atoms].cpu()
+            timing["sim"] = self
+
+        def step(self, dt_ps, n_steps=1, *a, **kw):
+            # the caller's call only (a long call steps itself in chunks)
+            outer, self._outer = self._outer, False
+            t0 = time.perf_counter()
+            try:
+                return super().step(dt_ps, n_steps, *a, **kw)
+            finally:
+                self._outer = outer
+                if outer:
+                    torch.cuda.synchronize()
+                    timing["step_s"] += time.perf_counter() - t0
+                    timing["steps"] += n_steps
+
+    base, engine.MdSim = engine.MdSim, Timed
+    try:
+        t0 = time.perf_counter()
+        res = flexible_align(hit, template)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        engine.MdSim = base
+    err_pull1, lim_pull1, pull_max1 = pull_err(timing.pop("sim"),
+                                               res.matched_pairs)
+    rigid = rigid_align(hit, template)
+    ia = [p[0] for p in res.matched_pairs]
+    ib = [p[1] for p in res.matched_pairs]
+    rmsd_fire = float(np.sqrt(((timing["x_fire"].double().numpy()[ia]
+                                - x_t[ib]) ** 2).sum(1).mean()))
+    finite = bool(np.isfinite(res.positions).all())
+    ms_step = timing["step_s"] / timing["steps"] * 1e3
+    out.update(align_wall_s=wall, align_fire_s=timing["fire_s"],
+               align_ms_per_step=ms_step, rmsd=res.rmsd,
+               rigid_rmsd=rigid.rmsd, fire_rmsd=rmsd_fire,
+               pairs=len(res.matched_pairs), align_max_df=err,
+               align_max_f=f_max, pull_card_cpu=err_pull_cpu,
+               pull_err_prealigned=err_pull0, pull_lim_prealigned=lim_pull0,
+               pull_max_prealigned=pull_max0, pull_err_final=err_pull1,
+               pull_lim_final=lim_pull1, pull_max_final=pull_max1)
+    say(f"[R] flexible_align({hit.name} onto {template.name}): "
+        f"{len(res.matched_pairs)} matched pairs, RMSD rigid "
+        f"{rigid.rmsd:.4f}, after FIRE {rmsd_fire:.4f}, after the pulled "
+        f"steps {res.rmsd:.4f} A; FIRE {timing['fire_s']:.2f} s, "
+        f"{timing['steps']} steps at {ms_step:.3f} ms/step, wall "
+        f"{wall:.2f} s; force with the pull card vs CPU at the prealigned "
+        f"state max|dF| {err:.3e} (max|F| {f_max:.3e}); the pull alone "
+        f"card vs CPU {err_pull_cpu:.3e}, card vs float64 at the "
+        f"prealigned state {err_pull0:.3e} (max {pull_max0:.3e}, limit "
+        f"{lim_pull0:.3e}), after the pulled steps {err_pull1:.3e} (max "
+        f"{pull_max1:.3e}, limit {lim_pull1:.3e})")
+    # FIRE at construction runs without the pull and moves the molecule
+    # off its rigid prealignment, as in the reference (ROADMAP Queue 3):
+    # the pulled steps are held to bring it back toward the template
+    if not finite or not res.rmsd < rmsd_fire or len(ia) < 3 \
+            or not err <= CONF_TOL_F * f_max \
+            or not err_pull_cpu <= lim_pull0 or not err_pull0 <= lim_pull0 \
+            or not err_pull1 <= lim_pull1:
+        raise SystemExit(f"flexible_align: finite={finite} rmsd "
+                         f"{res.rmsd} vs {rmsd_fire} after FIRE, pairs "
+                         f"{len(ia)}, max|dF| {err}; pull card vs CPU "
+                         f"{err_pull_cpu}, vs float64 {err_pull0} and "
+                         f"{err_pull1} against {lim_pull0} and {lim_pull1}")
+
+    t0 = time.perf_counter()
+    bonds_h = find_hydrogen_bonds(hb["elements"], hb["positions"],
+                                  hb["bonds"], box=hb["box"])
+    hb_ms = (time.perf_counter() - t0) * 1e3
+    d_max = max((h.distance for h in bonds_h), default=float("nan"))
+    a_min = min((np.degrees(h.angle) for h in bonds_h), default=float("nan"))
+    n_lig = sum(1 for h in bonds_h if h.donor < mol_n.n_atoms
+                or h.acceptor < mol_n.n_atoms)
+    out.update(hbonds=len(bonds_h), hbonds_ligand=n_lig, hbond_ms=hb_ms,
+               hbond_max_da=d_max, hbond_min_angle=a_min)
+    say(f"[R] find_hydrogen_bonds on N's last snapshot (t = "
+        f"{hb['time']:.3f} ps, {len(hb['elements'])} sites, box): "
+        f"{len(bonds_h)} H-bonds ({n_lig} with the ligand) in {hb_ms:.1f} "
+        f"ms, D-A <= {d_max:.3f} A, angle >= {a_min:.2f} deg")
+    if not bonds_h or not d_max <= 3.5 or not a_min >= 120.0:
+        raise SystemExit(f"H-bonds: {len(bonds_h)}, D-A {d_max}, angle "
+                         f"{a_min}")
+
+    n_real = asys.topology.n_atoms_real
+    sc = 0 if asys.water_model is None else asys.water_model.site_count
+    elements = list(mol_n.elements) + (["O", "H", "H", "M"][:sc]
+                                       * asys.n_waters)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mdp = make_gromacs_input(asys, cfg, 1000, 0.002, tmp,
+                                 elements=elements)
+        gmx_ms = (time.perf_counter() - t0) * 1e3
+        back, box = read_gro(os.path.join(tmp, "md.gro"))
+        top_text = open(os.path.join(tmp, "md.top")).read()
+        mdp_text = mdp.read_text()
+    want = np.asarray(asys.positions, float)[:n_real]
+    eps32 = float(np.finfo(np.float32).eps)
+    tol = 10.0 * 0.5e-3 + 2.0 * eps32 * float(np.abs(want).max())
+    err_gro = float(np.abs(np.asarray(back.positions) - want).max()) \
+        if back.n_atoms == n_real else float("inf")
+    mols_sec = top_text.split("[ molecules ]")[-1].split()
+    counts = dict(zip(mols_sec[::2], (int(v) for v in mols_sec[1::2])))
+    want_counts = {"MOL": 1, **({"SOL": asys.n_waters} if asys.n_waters
+                                else {})}
+    out.update(gromacs_ms=gmx_ms, gro_err=err_gro, top_counts=counts)
+    say(f"[R] make_gromacs_input of N's system in {gmx_ms:.1f} ms: .gro "
+        f"of {back.n_atoms} sites read back max|dx| {err_gro:.3e} A (limit "
+        f"{tol:.3e}), box {[round(float(v), 3) for v in box]}, .top "
+        f"[ molecules ] {counts}, .mdp integrator "
+        f"{mdp_text.split()[2]}")
+    if not err_gro <= tol or counts != want_counts:
+        raise SystemExit(f"GROMACS export: max|dx| {err_gro}, molecules "
+                         f"{counts} vs {want_counts}")
+    return out
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4088,11 +4574,24 @@ def main():
     # ---- 39. P: checkpoint, trajectory files and the viewer ----
     t0 = time.perf_counter()
     ckpt_traj = checkpoint_trajectory_phase(md_o, sim_n, mol_n, torch, np)
+    hb_n = hbond_inputs(sim_n, mol_n, np)
+    asys_n, cfg_n = sim_n.assembled, sim_n.cfg
     del md_o, sim_n
     say(f"[phases] P {time.perf_counter() - t0:.1f} s; N-P "
         f"{time.perf_counter() - t_nop:.1f} s")
 
-    # ---- 40. results ----
+    # ---- 40. Q: screening the library on the card ----
+    t_qr = time.perf_counter()
+    screen, hits, library, template = screening_phase(torch, np)
+    t0 = time.perf_counter()
+
+    # ---- 41. R: alignment of the top hit, H-bonds, GROMACS export ----
+    top_hit = align_hit(hits, template)
+    tools = alignment_tools_phase(library[top_hit.name], template, hb_n,
+                                  asys_n, cfg_n, mol_n, torch, np)
+    say(f"[phases] Q {t0 - t_qr:.1f} s, R {time.perf_counter() - t0:.1f} s")
+
+    # ---- 42. results ----
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     if args.profile:
@@ -4117,6 +4616,7 @@ def main():
                            docking=docking, density=density,
                            quickstart=quick, ligand_k2=lig_k2,
                            checkpoint_trajectory=ckpt_traj,
+                           screening=screen, alignment_tools=tools,
                            kernels=entries),
                       fh, indent=1)
     say(json.dumps({"kernels": [

@@ -185,6 +185,8 @@ class MdConfig:
                                       # by the port's host loop)
     neighbor_rebuild_every: int = 20  # steps between re-sorts
     pme_grid: Optional[Tuple[int, int, int]] = None  # None = auto from box
+    pme_order: int = 4                # the .mdp's pme-order (io/gromacs.py);
+                                      # the port's PME has its own orders
     ewald_rtol: float = 1e-5          # erfc(beta*rc) target at the cutoff
     cell_capacity_factor: float = 1.7 # reference knob; the cell-grid plan
                                       # sets capacity from occupancy

@@ -165,7 +165,7 @@ def test_mixing_functions():
 # The MD workloads against the reference's
 # ---------------------------------------------------------------------------
 
-JAX_ONLY_CFG = {"use_scan_chunks", "pme_order", "pme_every"}
+JAX_ONLY_CFG = {"use_scan_chunks", "pme_every"}
 
 
 def _v0(masses, dof_mask, temp):

@@ -164,7 +164,8 @@ def test_port_imports_no_jax():
     batch workloads of properties/, the barostat, snapshots, the probe,
     the PDB / SDF readers and GAFF2 chain, docking, density and the
     surface mesher, the other file formats, checkpoints, Trajectory and
-    SnapshotViewer among them), and chip_smoke, import without loading
+    SnapshotViewer, the molecule stack and screening, the GROMACS and ORCA
+    wrappers and H-bonds among them), and chip_smoke, import without loading
     jax, flax or any molchanica_tpu module."""
     code = (
         "import pkgutil, importlib, sys\n"
@@ -192,7 +193,11 @@ def test_port_imports_no_jax():
         "'docking.setup', 'docking.poses', 'docking.scorer', "
         "'docking.shoot', 'density', 'sfc_mesh', 'io.xyz', 'io.mol2', "
         "'io.gro', 'io.mmcif', 'io.dcd', 'io.trr', 'io.xtc', 'io.prmtop', "
-        "'md.checkpoint', 'md.trajectory', 'md.viewer']\n"
+        "'md.checkpoint', 'md.trajectory', 'md.viewer', "
+        "'molecules.characterization', 'molecules.smiles', "
+        "'molecules.conformers', 'molecules.alignment', 'screening', "
+        "'screening.screen', 'external_tools', 'io.gromacs', 'io.orca', "
+        "'analysis.hbonds']\n"
         "missing = [m for m in need if 'molchanica_tpu_torch.' + m "
         "not in sys.modules]\n"
         "print(len([m for m in sys.modules "

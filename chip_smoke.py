@@ -191,11 +191,36 @@ Phases, each printed on lines of its own:
      non-empty, every D-A <= 3.5 A and angle >= 120 deg; make_gromacs_input
      of N's assembled system: the .gro read back within 0.5e-3 nm plus
      float32 rounding, the .top's [ molecules ] counts the system's;
- 42. the kernel JSON line, the card line, and the final JSON result line.
-     Phases 24-29, H-N and Q-R launch no hand-written kernel: the JAX
-     package computes their direct space, scorer, shots, density and
-     conformer energies in XLA (or numpy), so the port does it in plain
-     torch.
+ 42. S: ADME inference: the 27 committed weights files through the
+     JAX-free loader (load ms per file), TherapeuticPredictor.predict_mols
+     on the card over Q's 269 parsed molecules per target (ms per target,
+     molecules/s, peak memory), every raw output against the port on the
+     CPU within 1e-5 x (1 + |raw|), one forward under the profiler (device
+     ms, kernels, busy share); compute_therapeutic_properties of 32 SMILES
+     card vs CPU with the same NaN fields; caffeine over alendronate on
+     hia_hou, warfarin over metformin by more than 20 on ppbr_az;
+ 43. T: train_target("logp_experimental") at the reference's defaults (50
+     epochs, seed 0, 99 measured molecules) on the card and on the CPU port
+     into temporary directories: the first 3 epochs' losses within 1e-3
+     relative, held-out Pearson >= 0.6 on both, the saved file through
+     TherapeuticPredictor(weights_path=...) predicting the test set bit
+     for bit, no file under molchanica_tpu/ changed (sizes and mtimes); s
+     per train_target, ms per optimizer step;
+ 44. U: ProteinMPNN at full width (K 48) on the backbone of a 250-residue
+     build_polyalanine (seed 3), init_weights from a generator seeded 0:
+     forward card (float32) vs CPU (float64) within 1e-4, rows summing to
+     1 within 1e-5, one rigid motion within 1e-4; conditional_log_probs of
+     all-A under one order card vs CPU float64 within 1e-4; 4
+     design_sequences samples at T 0.1, each mean log-prob within 1e-5 of
+     the teacher-forced decode of its sequence under the same order (over
+     the 20 residues), no X; ddg_scan's wild-type column zero; forward
+     device ms and kernels, ms and kernels per decode step, s per designed
+     sequence;
+ 45. the kernel JSON line, the card line, and the final JSON result line.
+     Phases 24-29, H-N and Q-U launch no hand-written kernel: the JAX
+     package computes their direct space, scorer, shots, density,
+     conformer energies and models in XLA (or numpy), so the port does it
+     in plain torch.
 An NVT hold (the mean temperature of further FastSim steps near 310 K)
 runs only when --hold N asks for it.
 
@@ -501,6 +526,49 @@ SCREEN_ENERGY_TOL = 1e-5
 CONF_TOL_F = 1e-4
 CONF_FLOORS = 2.0
 PULL_ULPS = 2.0
+# phases S-U: the therapeutic models. S: every committed ADME weights file
+# (27) through the JAX-free loader, TherapeuticPredictor.predict_mols on
+# the card over Q's parsed library; each raw output (logit or scaled
+# value) card vs the port on the CPU within ADME_TOL x (1 + |raw|), the
+# float32 roundoff of two summation orders; compute_therapeutic_properties
+# on the first N_PROPS_SMILES SMILES card vs CPU, and the two orderings of
+# tests/test_measured_datasets.py (caffeine over alendronate on hia_hou,
+# warfarin over metformin by more than PPBR_GAP on ppbr_az)
+ADME_TOL = 1e-5
+N_PROPS_SMILES = 32
+PPBR_GAP = 20.0
+ORDERINGS = (("hia_hou", "Cn1cnc2c1c(=O)n(C)c(=O)n2C",
+              "NCCCC(O)(P(=O)(O)O)P(=O)(O)O", 0.0),
+             ("ppbr_az", "CC(=O)CC(c1ccccc1)c1c(O)c2ccccc2oc1=O",
+              "CN(C)C(=N)NC(=N)N", PPBR_GAP))
+# T: train_target(TRAIN_TARGET) at the reference's defaults (50 epochs,
+# seed 0) on the card and on the CPU port, into temporary directories: the
+# first TRAIN_EPOCHS_HELD epochs' losses within TRAIN_LOSS_TOL relative
+# (float32 in two summation orders; later epochs drift apart), held-out
+# Pearson at least TRAIN_PEARSON_MIN (tests/test_therapeutic.py's floor)
+TRAIN_TARGET = "logp_experimental"
+TRAIN_EPOCHS_HELD = 3
+TRAIN_LOSS_TOL = 1e-3
+TRAIN_PEARSON_MIN = 0.6
+# U: ProteinMPNN at its full width (K 48) on the N, CA, C, O of a
+# 250-residue build_polyalanine(seed 3), init_weights from a generator
+# seeded 0: the card's float32 log-probs within MPNN_TOL of the CPU's
+# float64 (forward, and conditional_log_probs of all-A under one order),
+# rows summing to 1 within MPNN_SUM_TOL, one rigid motion within MPNN_TOL;
+# MPNN_SAMPLES designs at MPNN_T, each mean log-prob within
+# MPNN_DESIGN_TOL of the teacher-forced decode of its sequence under the
+# same order (renormalized over the 20 residues: design masks X out)
+MPNN_RESIDUES = 250
+MPNN_SEED = 3
+MPNN_TOL = 1e-4
+MPNN_SUM_TOL = 1e-5
+MPNN_SAMPLES = 4
+MPNN_T = 0.1
+MPNN_DESIGN_TOL = 1e-5
+# the decode steps traced at the main path's shapes: the first
+# MPNN_PROFILE_STEPS of the 250-residue, K 48 decode (a trace of all 250,
+# ~36k kernels, takes 6-9 s to read)
+MPNN_PROFILE_STEPS = 50
 
 
 def say(*a):
@@ -2543,6 +2611,37 @@ def profile_calls(fn, torch):
     return ka, key, dev, dev_ms, launches, wall_ms
 
 
+def profile_kernels(fn, torch):
+    """Trace one call of fn() with the CUDA activity alone: a dict of the
+    kernels' device ms and count, the copies' and fills' (Memcpy, Memset)
+    device ms and count, the wall ms, and the seconds the trace took to
+    read. No CPU-side op is recorded, so a call of thousands of kernels
+    reads quickly. A trace taken after earlier traces in the process can
+    miss a call's first copies and kernels (PERF.md §5)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    out = dict(kernel_ms=0.0, kernels=0, copy_ms=0.0, copies=0,
+               wall_ms=(t1 - t0) * 1e3)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms, n = (("copy_ms", "copies")
+                 if e.name.startswith(("Memcpy", "Memset"))
+                 else ("kernel_ms", "kernels"))
+        out[ms] += e.time_range.elapsed_us() / 1e3
+        out[n] += 1
+    out["read_s"] = time.perf_counter() - t1
+    if not out["kernels"]:
+        raise SystemExit("profile_kernels: the trace holds no kernel")
+    return out
+
+
 def profile_steps(sim, n, torch, out_dir, prefix=""):
     """Trace n steps: device busy share, kernel launches per step and the
     kernels by device time (full tables in out_dir/profile.txt if given)."""
@@ -3833,7 +3932,7 @@ def screening_phase(torch, np):
     N_SCREEN_CPU ligands, and generate_conformers' defaults with FIRE on
     the library's largest molecule and the most flexible of the rest.
     Returns (results, the hits, the library's molecules by name, the
-    pharmacophore's ligand)."""
+    pharmacophore's ligand, the from_smiles molecules by SMILES)."""
     import dataclasses
     import tempfile
 
@@ -4008,7 +4107,7 @@ def screening_phase(torch, np):
             name=m.name, atoms=m.n_atoms, torsions=torsions[m.name],
             fire_s=fire_s, e_best=e0, e_min=e1, max_df=err,
             max_df_f64=err64, f32_floor=floor, max_f=f_max))
-    return out, hits, by_name, template
+    return out, hits, by_name, template, dict(zip(library, mols))
 
 
 def align_hit(hits, template):
@@ -4227,6 +4326,349 @@ def alignment_tools_phase(hit, template, hb, asys, cfg, mol_n, torch, np):
     if not err_gro <= tol or counts != want_counts:
         raise SystemExit(f"GROMACS export: max|dx| {err_gro}, molecules "
                          f"{counts} vs {want_counts}")
+    return out
+
+
+def adme_phase(mols_by_smiles, torch, np):
+    """Phase S: every committed ADME weights file through the JAX-free
+    loader, TherapeuticPredictor.predict_mols on the card over the library
+    (Q's parsed molecules), each raw output against the port on the CPU,
+    compute_therapeutic_properties card vs CPU, the measured orderings."""
+    import glob
+
+    from molchanica_tpu_torch.models.adme import (adme_forward, build_model,
+                                                  featurize_batch,
+                                                  postprocess)
+    from molchanica_tpu_torch.therapeutic.infer import (
+        REFERENCE_WEIGHTS_DIR, TherapeuticPredictor,
+        compute_therapeutic_properties)
+
+    library = sorted(mols_by_smiles)
+    mols = [mols_by_smiles[s] for s in library]
+    paths = sorted(glob.glob(os.path.join(REFERENCE_WEIGHTS_DIR, "*.pkl")))
+    if len(paths) != 27:
+        raise SystemExit(f"phase S: {len(paths)} committed weights files")
+    t0 = time.perf_counter()
+    feats = featurize_batch(mols)
+    feat_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, worst = [], 0.0
+    for path in paths:
+        t0 = time.perf_counter()
+        pred = TherapeuticPredictor(os.path.basename(path)[:-4],
+                                    weights_path=path)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        vals = pred.predict_mols(mols)
+        target_ms = (time.perf_counter() - t0) * 1e3
+        raw = pred.raw_feats(feats)
+        raw_c = adme_forward(build_model(pred.cfg, pred.model.state_dict(),
+                                         "cpu"), feats)
+        err = float((np.abs(raw.astype(np.float64) - raw_c)
+                     / (1.0 + np.abs(raw_c))).max())
+        worst = max(worst, err)
+        same = np.array_equal(vals, postprocess(raw, pred.scaler, pred.cfg))
+        finite = bool(np.isfinite(vals).all())
+        rows.append(dict(target=pred.target, load_ms=load_ms,
+                         ms=target_ms, err=err,
+                         classification=pred.cfg.classification))
+        if not (err <= ADME_TOL and same and finite
+                and vals.shape == (len(mols),)):
+            raise SystemExit(f"phase S {pred.target}: raw card vs CPU "
+                             f"{err:.3e} of 1 + |raw|, predict_mols equal "
+                             f"to the raw path {same}, finite {finite}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = np.array([r["ms"] for r in rows])
+    load = np.array([r["load_ms"] for r in rows])
+    # one forward under the profiler (the last target): its kernels, and
+    # apart from them the batch's copies to the card
+    prof = profile_kernels(lambda: pred.raw_feats(feats), torch)
+    dev_ms, kernels, wall_ms = (prof["kernel_ms"], prof["kernels"],
+                                prof["wall_ms"])
+    out = dict(targets=len(rows), molecules=len(mols), featurize_s=feat_s,
+               load_ms_mean=float(load.mean()), load_ms_max=float(load.max()),
+               ms_per_target_mean=float(ms.mean()),
+               ms_per_target_max=float(ms.max()),
+               molecules_per_s=len(mols) / float(ms.mean()) * 1e3,
+               max_raw_err=worst, forward_device_ms=dev_ms,
+               forward_kernels=kernels, forward_copy_ms=prof["copy_ms"],
+               forward_copies=prof["copies"], forward_wall_ms=wall_ms,
+               forward_busy=dev_ms / wall_ms, peak_gib=peak)
+    say(f"[S] {len(rows)} committed weights files through the JAX-free "
+        f"loader: load {load.mean():.2f} ms per file (max {load.max():.2f}); "
+        f"featurize_batch of {len(mols)} molecules {feat_s:.3f} s (host, "
+        f"paid again inside each predict_mols); predict_mols on the card "
+        f"{ms.mean():.1f} ms per target (max {ms.max():.1f}) = "
+        f"{out['molecules_per_s']:.0f} molecules/s; raw outputs card vs CPU "
+        f"max {worst:.3e} of 1 + |raw| (limit {ADME_TOL:g}); one forward "
+        f"of {len(mols)}: {dev_ms:.3f} ms of device time in {kernels} "
+        f"kernels, besides {prof['copy_ms']:.3f} ms in {prof['copies']} "
+        f"copies and fills, wall {wall_ms:.3f} ms, kernels busy "
+        f"{100.0 * dev_ms / wall_ms:.1f}%; peak "
+        f"{peak:.3f} GiB")
+
+    # grouped properties on the first SMILES, card vs CPU
+    smiles = library[:N_PROPS_SMILES]
+    t0 = time.perf_counter()
+    props_g = compute_therapeutic_properties(smiles)
+    props_s = time.perf_counter() - t0
+    props_c = compute_therapeutic_properties(smiles, device="cpu")
+    worst_p, nan_fields = 0.0, set()
+    for g, c in zip(props_g, props_c):
+        for group, vals in c.as_dict().items():
+            for k, v in vals.items():
+                u = g.as_dict()[group][k]
+                if np.isnan(u) != np.isnan(v):
+                    raise SystemExit(f"phase S: {group}.{k} NaN on one side")
+                if np.isnan(v):
+                    nan_fields.add(f"{group}.{k}")
+                else:
+                    worst_p = max(worst_p, abs(u - v) / (1.0 + abs(v)))
+    out.update(props_s=props_s, props_err=worst_p,
+               props_nan=sorted(nan_fields))
+    say(f"[S] compute_therapeutic_properties of {len(smiles)} SMILES on "
+        f"the card in {props_s:.2f} s: card vs CPU max {worst_p:.3e} of "
+        f"1 + |v|, NaN fields {sorted(nan_fields)} on both")
+    if worst_p > ADME_TOL:
+        raise SystemExit(f"phase S: properties card vs CPU {worst_p}")
+
+    for target, hi, lo, gap in ORDERINGS:
+        p = TherapeuticPredictor(target).predict([hi, lo])
+        out[f"{target}_pair"] = [float(v) for v in p]
+        say(f"[S] {target}: {hi} {p[0]:.4f} vs {lo} {p[1]:.4f} (must lead "
+            f"by more than {gap:g})")
+        if not p[0] > p[1] + gap:
+            raise SystemExit(f"phase S: {target} ordering {p}")
+    return out
+
+
+def package_listing(top):
+    """{path: (size, mtime_ns)} of every file under top."""
+    out = {}
+    for d, _, files in os.walk(top):
+        for f in files:
+            st = os.stat(os.path.join(d, f))
+            out[os.path.join(d, f)] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
+def train_phase(mols_by_smiles, torch, np):
+    """Phase T: train_target(TRAIN_TARGET) at the reference's defaults on
+    the card and on the CPU port into temporary directories; the saved
+    file reloaded; nothing under molchanica_tpu/ written."""
+    import tempfile
+
+    from torch.optim.optimizer import (register_optimizer_step_post_hook,
+                                       register_optimizer_step_pre_hook)
+
+    from molchanica_tpu_torch.models.eval import pearson
+    from molchanica_tpu_torch.therapeutic.data import (load_csv_dataset,
+                                                       split_dataset)
+    from molchanica_tpu_torch.therapeutic.infer import TherapeuticPredictor
+    from molchanica_tpu_torch.therapeutic.targets import (EXPERIMENTAL_DATA,
+                                                          REFERENCE_DIR)
+    from molchanica_tpu_torch.therapeutic.train import train_target
+
+    pkg = os.path.join(ROOT, "molchanica_tpu")
+    before = package_listing(pkg)
+    # the optimizer steps of each run: their count and the host time from
+    # the first step's start to the last step's end (train_adme reads each
+    # epoch's val loss, so the card is never more than an epoch behind)
+    steps = []
+    pre = register_optimizer_step_pre_hook(
+        lambda opt, a, k: steps.append([time.perf_counter(), None]))
+    post = register_optimizer_step_post_hook(
+        lambda opt, a, k: steps[-1].__setitem__(1, time.perf_counter()))
+    runs = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for dev in ("cuda", "cpu"):
+                steps.clear()
+                wdir = os.path.join(tmp, dev)
+                t0 = time.perf_counter()
+                res = train_target(TRAIN_TARGET, weights_dir=wdir,
+                                   device=dev)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                step_ms = (steps[-1][1] - steps[0][0]) / len(steps) * 1e3
+                runs[dev] = (res, wall, len(steps), step_ms)
+            res_g = runs["cuda"][0]
+            smiles, y = load_csv_dataset(os.path.join(
+                REFERENCE_DIR, EXPERIMENTAL_DATA[TRAIN_TARGET]))
+            _, _, te = split_dataset(len(smiles), seed=0)
+            test_mols = [mols_by_smiles[smiles[i]] for i in te]
+            reloaded = TherapeuticPredictor(
+                TRAIN_TARGET, weights_path=res_g["weights_path"]
+            ).predict_mols(test_mols)
+    finally:
+        pre.remove()
+        post.remove()
+    after = package_listing(pkg)
+    h_g = np.asarray(runs["cuda"][0]["history"])[:TRAIN_EPOCHS_HELD, 1:]
+    h_c = np.asarray(runs["cpu"][0]["history"])[:TRAIN_EPOCHS_HELD, 1:]
+    loss_err = float((np.abs(h_g - h_c) / np.abs(h_c)).max())
+    bitwise = np.array_equal(reloaded, res_g["test_pred"])
+    r_test = pearson(y[te], reloaded)
+    out = {}
+    for dev, (res, wall, n, step_ms) in runs.items():
+        out[dev] = dict(train_s=wall, steps=n, ms_per_step=step_ms,
+                        metrics=res["metrics"], n_train=res["n_train"],
+                        n_test=res["n_test"],
+                        history_tail=res["history_tail"])
+        say(f"[T] train_target({TRAIN_TARGET!r}) on {dev}: {wall:.2f} s, "
+            f"{n} optimizer steps at {step_ms:.3f} ms per step; n_train "
+            f"{res['n_train']}, n_test {res['n_test']}, held-out pearson "
+            f"{res['metrics']['pearson']:.4f} rmse "
+            f"{res['metrics']['rmse']:.4f}; last epoch loss "
+            f"{res['history'][-1][1]:.5f} val {res['history'][-1][2]:.5f}")
+    out.update(loss_err=loss_err, reloaded_bitwise=bitwise,
+               reloaded_pearson=r_test,
+               package_unchanged=before == after)
+    say(f"[T] first {TRAIN_EPOCHS_HELD} epochs' losses card vs CPU max "
+        f"{loss_err:.3e} relative (limit {TRAIN_LOSS_TOL:g}); the saved file "
+        f"through TherapeuticPredictor(weights_path=...) predicts the test "
+        f"set bit for bit: {bitwise} (pearson {r_test:.4f}); files under "
+        f"molchanica_tpu/ unchanged: {before == after} ({len(after)} files)")
+    if not (loss_err <= TRAIN_LOSS_TOL and bitwise and before == after
+            and all(r[0]["metrics"]["pearson"] >= TRAIN_PEARSON_MIN
+                    for r in runs.values())):
+        raise SystemExit("phase T failed")
+    return out
+
+
+def polyalanine_backbone(np):
+    """N, CA, C, O of build_polyalanine(MPNN_RESIDUES, seed=MPNN_SEED) as
+    an MPNN Backbone (one chain)."""
+    from molchanica_tpu_torch.systems.bench_systems import (
+        _ALA_ATOMS, build_polyalanine)
+    from molchanica_tpu_torch.therapeutic.mpnn import Backbone
+
+    spec = build_polyalanine(MPNN_RESIDUES, seed=MPNN_SEED)
+    names = [a[0] for a in _ALA_ATOMS]
+    x = np.asarray(spec.positions).reshape(MPNN_RESIDUES, len(names), 3)
+    n, ca, c, o = (x[:, names.index(a)] for a in ("N", "CA", "C", "O"))
+    return Backbone(n=n, ca=ca, c=c, o=o,
+                    chain_index=np.zeros(MPNN_RESIDUES, int),
+                    residue_index=np.arange(MPNN_RESIDUES))
+
+
+def mpnn_phase(torch, np):
+    """Phase U: ProteinMPNN at full width on the card: forward against the
+    CPU in float64, normalization, rigid invariance, conditional scoring,
+    MPNN_SAMPLES designs against teacher forcing, ddg_scan."""
+    from molchanica_tpu_torch.therapeutic import mpnn as M
+
+    bb = polyalanine_backbone(np)
+    L = len(bb)
+    p_g = M.init_weights(torch.Generator().manual_seed(0))
+    p_c = {k: v.cpu().double() for k, v in p_g.items()}
+    out = {}
+    lp_g = M.forward(p_g, bb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp_c = M.forward(p_c, bb)
+    cpu_s = time.perf_counter() - t0
+    prof = profile_kernels(lambda: M.forward(p_g, bb), torch)
+    dev_ms, kernels, wall_ms = (prof["kernel_ms"], prof["kernels"],
+                                prof["wall_ms"])
+    err = float((lp_g.double().cpu() - lp_c).abs().max())
+    sums = float((lp_g.double().exp().sum(-1) - 1.0).abs().max())
+    th = 0.7
+    R = np.array([[np.cos(th), -np.sin(th), 0],
+                  [np.sin(th), np.cos(th), 0], [0, 0, 1.0]])
+    shift = np.array([11.0, -3.0, 7.0])
+    moved = M.Backbone(*(a @ R.T + shift for a in (bb.n, bb.ca, bb.c, bb.o)),
+                       bb.chain_index, bb.residue_index)
+    rigid = float((M.forward(p_g, moved) - lp_g).abs().max())
+    out.update(residues=L, forward_err=err, row_sum_err=sums,
+               rigid_err=rigid, forward_device_ms=dev_ms,
+               forward_kernels=kernels, forward_copies=prof["copies"],
+               forward_wall_ms=wall_ms, forward_cpu_f64_s=cpu_s)
+    say(f"[U] ProteinMPNN forward, {L} residues of build_polyalanine "
+        f"(seed {MPNN_SEED}), K {M.K_NEIGHBORS}: device {dev_ms:.3f} ms in "
+        f"{kernels} kernels (besides {prof['copies']} copies and fills), "
+        f"wall {wall_ms:.3f} ms (CPU float64 "
+        f"{cpu_s:.2f} s); card float32 vs CPU float64 max|d log p| "
+        f"{err:.3e} (limit {MPNN_TOL:g}), rows sum to 1 within {sums:.3e} "
+        f"(limit {MPNN_SUM_TOL:g}), rigid motion {rigid:.3e}")
+    if not (err <= MPNN_TOL and sums <= MPNN_SUM_TOL and rigid <= MPNN_TOL):
+        raise SystemExit("phase U: forward gates")
+
+    # teacher-forced scoring of all-A under one order, card vs CPU
+    seq_a = "A" * L
+    t0 = time.perf_counter()
+    cl_g = M.conditional_log_probs(p_g, bb, seq_a,
+                                   torch.Generator().manual_seed(5))
+    cond_s = time.perf_counter() - t0
+    cl_c = M.conditional_log_probs(p_c, bb, seq_a,
+                                   torch.Generator().manual_seed(5))
+    cond_err = float(np.abs(cl_g - cl_c).max())
+    # the first MPNN_PROFILE_STEPS steps of the teacher-forced decode of
+    # all-A (L residues, K 48) under the profiler, the encoder apart, in
+    # the order conditional_log_probs drew
+    enc = M._encode(p_g, M._bb_arrays(p_g, bb), M.K_NEIGHBORS)
+    order = torch.randperm(L, generator=torch.Generator().manual_seed(5))
+    n_p = MPNN_PROFILE_STEPS
+    c_prof = profile_kernels(
+        lambda: M._decode(p_g, enc, order[:n_p].tolist(),
+                          sequence=[0] * L), torch)
+    c_dev_ms, c_kernels, c_wall_ms = (c_prof["kernel_ms"],
+                                      c_prof["kernels"], c_prof["wall_ms"])
+    out.update(conditional_err=cond_err, conditional_s=cond_s,
+               decode_ms_per_step=cond_s / L * 1e3,
+               decode_kernels_per_step=c_kernels / n_p,
+               decode_device_ms_per_step=c_dev_ms / n_p,
+               decode_busy=c_dev_ms / c_wall_ms,
+               decode_profile_read_s=c_prof["read_s"])
+    say(f"[U] conditional_log_probs of all-A: card vs CPU float64 max "
+        f"{cond_err:.3e} (limit {MPNN_TOL:g}); {cond_s:.2f} s on the card = "
+        f"{cond_s / L * 1e3:.3f} ms per decode step (the encoder "
+        f"included); its first {n_p} of {L} decode steps (K "
+        f"{M.K_NEIGHBORS}) profiled: {c_kernels / n_p:.1f} kernels and "
+        f"{c_dev_ms / n_p:.4f} ms of device time per step, wall "
+        f"{c_wall_ms / n_p:.3f} ms per step, busy "
+        f"{100.0 * c_dev_ms / c_wall_ms:.1f}% ({c_prof['copies']} "
+        f"copies and fills apart; the trace read in "
+        f"{c_prof['read_s']:.2f} s)")
+    if not cond_err <= MPNN_TOL:
+        raise SystemExit(f"phase U: conditional_log_probs {cond_err}")
+
+    # designs at MPNN_T, each against the teacher-forced decode of its
+    # sequence under the same order (design_sequences' draws, replayed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seqs, lps = M.design_sequences(p_g, bb, torch.Generator().manual_seed(7),
+                                   n_samples=MPNN_SAMPLES,
+                                   temperature=MPNN_T)
+    design_s = (time.perf_counter() - t0) / MPNN_SAMPLES
+    g = torch.Generator().manual_seed(7)
+    worst = 0.0
+    for s, lp in zip(seqs, lps):
+        order, _ = M._draw(g, L)
+        idx, rows = M._decode(p_g, enc, order.tolist(),
+                              sequence=[M.ALPHABET.index(c) for c in s])
+        lp20 = torch.log_softmax(rows[:, :20].double(), dim=-1)
+        worst = max(worst, abs(float(lp20.gather(1, idx[:, None]).mean())
+                               - float(lp)))
+    has_x = any("X" in s for s in seqs)
+    ddg = M.ddg_scan(lp_g, seqs[0])
+    wt_zero = bool(all(ddg[i, M.ALPHABET.index(a)] == 0
+                       for i, a in enumerate(seqs[0])))
+    out.update(samples=MPNN_SAMPLES, s_per_design=design_s, design_err=worst,
+               mean_log_probs=[float(v) for v in lps],
+               identity=[float(np.mean([a == b for a, b in zip(s, seq_a)]))
+                         for s in seqs])
+    say(f"[U] design_sequences: {MPNN_SAMPLES} samples at T {MPNN_T:g} in "
+        f"{design_s:.2f} s per sequence ({design_s / L * 1e3:.3f} ms per "
+        f"step); mean log p {[round(float(v), 4) for v in lps]}; against "
+        f"the teacher-forced decode of each max {worst:.3e} (limit "
+        f"{MPNN_DESIGN_TOL:g}); X in a sample {has_x}; ddg_scan wild type "
+        f"zero {wt_zero}; first {seqs[0][:40]}...")
+    if not (worst <= MPNN_DESIGN_TOL and not has_x and wt_zero):
+        raise SystemExit("phase U: design gates")
     return out
 
 
@@ -4582,7 +5024,7 @@ def main():
 
     # ---- 40. Q: screening the library on the card ----
     t_qr = time.perf_counter()
-    screen, hits, library, template = screening_phase(torch, np)
+    screen, hits, library, template, parsed = screening_phase(torch, np)
     t0 = time.perf_counter()
 
     # ---- 41. R: alignment of the top hit, H-bonds, GROMACS export ----
@@ -4591,7 +5033,21 @@ def main():
                                   asys_n, cfg_n, mol_n, torch, np)
     say(f"[phases] Q {t0 - t_qr:.1f} s, R {time.perf_counter() - t0:.1f} s")
 
-    # ---- 42. results ----
+    # ---- 42. S: ADME inference over the library ----
+    t_stu = time.perf_counter()
+    adme = adme_phase(parsed, torch, np)
+    t_t = time.perf_counter()
+
+    # ---- 43. T: training on the card ----
+    training = train_phase(parsed, torch, np)
+    t_u = time.perf_counter()
+
+    # ---- 44. U: ProteinMPNN ----
+    mpnn = mpnn_phase(torch, np)
+    say(f"[phases] S {t_t - t_stu:.1f} s, T {t_u - t_t:.1f} s, U "
+        f"{time.perf_counter() - t_u:.1f} s")
+
+    # ---- 45. results ----
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     if args.profile:
@@ -4617,6 +5073,7 @@ def main():
                            quickstart=quick, ligand_k2=lig_k2,
                            checkpoint_trajectory=ckpt_traj,
                            screening=screen, alignment_tools=tools,
+                           adme=adme, training=training, mpnn=mpnn,
                            kernels=entries),
                       fh, indent=1)
     say(json.dumps({"kernels": [

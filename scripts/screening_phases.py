@@ -48,7 +48,7 @@ def main():
         C.say(f"[phases] N: {time.perf_counter() - t0:.1f} s")
     if set(args.phases) & set("QR"):
         t0 = time.perf_counter()
-        _, hits, library, template = C.screening_phase(torch, np)
+        _, hits, library, template, _ = C.screening_phase(torch, np)
         C.say(f"[phases] Q: {time.perf_counter() - t0:.1f} s")
     if "R" in args.phases:
         t0 = time.perf_counter()

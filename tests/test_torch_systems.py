@@ -165,14 +165,31 @@ def test_port_imports_no_jax():
     the PDB / SDF readers and GAFF2 chain, docking, density and the
     surface mesher, the other file formats, checkpoints, Trajectory and
     SnapshotViewer, the molecule stack and screening, the GROMACS and ORCA
-    wrappers and H-bonds among them), and chip_smoke, import without loading
-    jax, flax or any molchanica_tpu module."""
+    wrappers and H-bonds, the ADME models, the therapeutic pipeline and
+    ProteinMPNN among them), and chip_smoke, import without loading jax,
+    flax or any molchanica_tpu module. The committed ADME weights load
+    there too, every file but lipophilicity_astrazeneca.pkl (which the
+    JAX package's test_train_and_infer_regression rewrites while the tests
+    run): 32 arrays and 49,193 parameters each."""
     code = (
-        "import pkgutil, importlib, sys\n"
+        "import glob, os, pkgutil, importlib, sys\n"
         "import molchanica_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "from molchanica_tpu_torch.models.adme import load_weights\n"
+        "from molchanica_tpu_torch.therapeutic.infer import "
+        "REFERENCE_WEIGHTS_DIR\n"
+        "pkls = [q for q in sorted(glob.glob(os.path.join("
+        "REFERENCE_WEIGHTS_DIR, '*.pkl'))) if os.path.basename(q) != "
+        "'lipophilicity_astrazeneca.pkl']\n"
+        "assert len(pkls) == 26, pkls\n"
+        "for q in pkls:\n"
+        "    b = load_weights(q)\n"
+        "    sd = b['state_dict']\n"
+        "    assert b['target'] + '.pkl' == os.path.basename(q), q\n"
+        "    assert len(sd) == 32 and sum(v.numel() for v in "
+        "sd.values()) == 49193, q\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'molchanica_tpu')]\n"
         "need = ['md.engine', 'md.energy', 'md.constraints', 'md.state', "
@@ -197,7 +214,10 @@ def test_port_imports_no_jax():
         "'molecules.characterization', 'molecules.smiles', "
         "'molecules.conformers', 'molecules.alignment', 'screening', "
         "'screening.screen', 'external_tools', 'io.gromacs', 'io.orca', "
-        "'analysis.hbonds']\n"
+        "'analysis.hbonds', 'models', 'models.adme', 'models.eval', "
+        "'models.graph_ml', 'therapeutic', 'therapeutic.targets', "
+        "'therapeutic.data', 'therapeutic.train', 'therapeutic.infer', "
+        "'therapeutic.mpnn']\n"
         "missing = [m for m in need if 'molchanica_tpu_torch.' + m "
         "not in sys.modules]\n"
         "print(len([m for m in sys.modules "

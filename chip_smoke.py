@@ -106,7 +106,7 @@ Phases, each printed on lines of its own:
      steps, T in band;
  30. G: the screening farm (scripts/bench_all.py's config-5 farm shape)
      on config 3 on K2: MdSim (Langevin gamma 5, FIRE 150, use_pallas)
-     and ReplicaFarm(sim, 4, seed=3), 5 + 50 farm steps with K2 launches
+     and ReplicaFarm(sim, 4, seed=3), 5 + 20 farm steps with K2 launches
      counted against the farm's force evaluations; on the diverged
      replicas one batched K2 launch against each replica's single launch
      (bitwise) and plain version (per slot and cell), pair counts; the
@@ -115,8 +115,9 @@ Phases, each printed on lines of its own:
  31. H: the hydration farm: on phase 13's state one batched force of 13
      replicas against 13 single MdSim evaluations, and one farm step of
      two replicas card vs CPU with the same noise; then run_sol_sim at
-     the reference protocol's width (13 windows, its own MdConfig: FIRE
-     400, clusters) with the step counts cut (40 + 66, dhdl every 10):
+     the reference protocol's width (13 windows, its own MdConfig on
+     clusters) with the step counts cut (FIRE 100 of its 400, 20 + 22,
+     dhdl every 10):
      ms per farm and window step, kernels per farm step, peak memory, the
      relaxation path, dG and SEM (not gated), each window's mean dH/dl
      beside its float32 FD floor; T per replica;
@@ -136,7 +137,7 @@ Phases, each printed on lines of its own:
      under the profiler, peak memory, find_sites;
  35. L: MD shooting: the first shot's assembled system, its allpairs force
      card vs CPU (phase 28's gate), then dock_md_multi with N_SHOTS shots
-     at dock_md's defaults (800 steps of 2 fs, 120 A/ps, float32, FIRE
+     at dock_md's defaults but 200 steps (of 2 fs, 120 A/ps, float32, FIRE
      200): finite traces, each shot closer to the site than its start,
      the closest within 8 A; ms/step and FIRE wall time per shot;
  36. M: density and surface: density_from_atoms of the receptor (8 A
@@ -156,7 +157,7 @@ Phases, each printed on lines of its own:
  38. O: the same ligand on K2: the 35 A cube refused by K2's plan (no
      fallback), then build_dynamics in the 36 A cube with use_pallas
      (cells_pme, ~5.3k sites, FIRE on K2), K2 against its plain version on
-     its grid, 400 + 200 (timed) steps with launches equal to the force
+     its grid, 300 + 100 (timed) steps with launches equal to the force
      evaluations;
  39. P: a checkpoint of O's card state restored bit for bit and two
      20-step continuations bitwise equal; launch_md of 20 more steps on
@@ -216,8 +217,34 @@ Phases, each printed on lines of its own:
      the 20 residues), no X; ddg_scan's wild-type column zero; forward
      device ms and kernels, ms and kernels per decode step, s per designed
      sequence;
- 45. the kernel JSON line, the card line, and the final JSON result line.
-     Phases 24-29, H-N and Q-U launch no hand-written kernel: the JAX
+ 45. V: a protein from its sequence: HP35 (villin headpiece,
+     LSDEDFKAVFGMTRSAFANLPLWKQQNLKKEKGLF) through predict_structure
+     (baseline), write_mmcif / read_mmcif and prepare_peptide (the same
+     MolSpec as a second pass of the chain, field for field), then
+     MolDynamics(ff_mol_type="peptide", spec=...) and build_dynamics in
+     OPC at phase N's MdConfig at a pad of 10 A (cells_pme): its force card
+     vs CPU at the initial state (phase 10's gate), then
+     run_dynamics_blocking(sim, 0.002, 400, 100): method, sites, box, FIRE
+     s, ms/step, ns/day; finite, 100 K < T < 600 K, rigid waters, the
+     protein's extent below 120 A. Then BASELINE config 2: the 12-mer
+     ASGVLFKWPHTY prepared the same way, in vacuum at
+     tests/test_peptide.py's MdConfig in float32 (FIRE 400), its force
+     card vs CPU (phase 28's gate), 300 steps of 1 fs: finite, 100 K < T
+     < 700 K, extent below 120 A;
+ 46. W: config 5's DNA duplex, MoleculeNucleicAcid.from_seq("GATTACA",
+     double=True).to_spec() (440 atoms, net charge -12 within 1e-6),
+     solvated and run as V's protein with V's gates;
+ 47. X: make_membrane() (32 PC lipids, 3,776 atoms) dry in its box at
+     tests/test_lipid.py's MdConfig in float32, MdSim on the card, its
+     force card vs CPU at the initial state, 100 steps of 1 fs at
+     force_cap 1000: finite, T < 2,000 K, the leaflets' P atoms more than
+     10 A apart in z; then MolEditor(device=None) through
+     tests/test_editor.py's sequence: the stretched bond shorter by more
+     than 0.1 A after 6 ticks, an O added mid-run (rebuilt lazily, 9
+     atoms, finite); build and tick times;
+ 48. the per-phase wall seconds (phase_seconds), the kernel JSON line, the
+     card line, and the final JSON result line.
+     Phases 24-29, H-N and Q-X launch no hand-written kernel: the JAX
      package computes their direct space, scorer, shots, density,
      conformer energies and models in XLA (or numpy), so the port does it
      in plain torch.
@@ -317,10 +344,24 @@ K2_GRID_COUPLED = 5
 # 500, the TI windows' production from 60, the vacuum run from 2,000:
 # run() keeps its four snapshots only where n/4 ends one of its chunks of
 # 100 steps; the MD shots from 6) when the user-layer phases N-P (~80 s)
-# took the whole script to 769 s on one H100
-N_TIMED = 300
-N_WARM = 100
-N_MD_TIMED = 200
+# took the whole script to 769 s on one H100. When the biomolecule phases
+# V-X came, the whole script already took 891.5 s on one H100 (phase
+# seconds: H 109, I 92, 14 57, L 57, J 50, N 49, O 45, G 45) and up to
+# 1,257 s on slower hosts, so earlier depths were cut again, every gate
+# kept: FastSim's warm-up 100 -> 50 and its timed call 300 -> 200, MdSim
+# on K2 timed 200 -> 100, the TI windows 40 + 40 -> 10 + 10 (a dH/dlambda
+# sample every 5, not 20: two per window still), the range tables' timed
+# steps 100 -> 50, sharded calls 20 -> 10, FastSim NPT 200 -> 100, MdSim's
+# warm-up 40 -> 20 and its NPT 200 -> 100, vacuum
+# ethanol 800 -> 400, farm steps 50 -> 20, run_sol_sim's windows 40 + 66
+# -> 20 + 22 (LogP's counts), FIRE before run_sol_sim's warm-ups 400 ->
+# 100 iterations (FARM_FIRE), the properties' steps 150 -> 60 and stages
+# 30 -> 15, the MD shots' steps 800 -> 200, O's warm-up 400 -> 300 and
+# timed steps 200 -> 100 (O still ends 400 steps after FIRE, where N
+# reads its lowest T)
+N_TIMED = 200
+N_WARM = 50
+N_MD_TIMED = 100
 N_MD_WARM = 40
 # kernel vs plain, whole arrays: max|dF| / max|F| and total energy rel
 KERNEL_TOL_F_MAX, KERNEL_TOL_E_TOT = 1e-4, 1e-5
@@ -336,9 +377,9 @@ ENGINE_TOL_F, ENGINE_TOL_DIRECT = 1e-4, 1e-5
 # shortened to N_TI_EQUIL + N_TI_PROD steps with a dH/dlambda sample every
 # TI_DHDL_INTERVAL; K1d held at two couplings where the softcore is large
 TI_SEED = 3
-N_TI_EQUIL = 40
-N_TI_PROD = 40
-TI_DHDL_INTERVAL = 20
+N_TI_EQUIL = 10
+N_TI_PROD = 10
+TI_DHDL_INTERVAL = 5
 ALCH_COUPLES = (0.5, 0.05)
 # dhdl is a float32 central difference (h = 1e-3): card vs CPU within
 # DHDL_FLOORS x eps32 * sum|terms| / 2h (the CPU tests hold the port to
@@ -356,9 +397,9 @@ DHDL_BLOWUP = 500.0
 # forces are held to 1e-4 of max|F| (the JAX package's 25k bound) and,
 # per site and per i-cluster, to the kernel gates above
 N_RANGE_WARM = 20
-N_RANGE_STEPS = 100
+N_RANGE_STEPS = 50
 N_SHARD = 8
-N_SHARD_CALLS = 20
+N_SHARD_CALLS = 10
 SHARD_TOL_F_MAX = 1e-4
 # phases 18-22: the symmetric FastSim (warm-up, timed run with two
 # snapshots), its range tables, its has_alch instances on the hydration
@@ -370,12 +411,12 @@ N_SYM_RANGE_STEPS = 20
 N_SYM_ALCH_STEPS = 20
 N_CROSS_CALLS = 20
 PROBE_BIG = (416, 8, 26624)
-N_NPT_STEPS = 200
+N_NPT_STEPS = 100
 # phases 24-29 (MdSim's default engine): step counts
-N_MDD_WARM = 40
+N_MDD_WARM = 20
 N_MDD_STEPS = 100
-N_MDD_NPT_STEPS = 200
-N_VAC_STEPS = 800
+N_MDD_NPT_STEPS = 100
+N_VAC_STEPS = 400
 N_MDD_ALCH_STEPS = 20
 # phases G-J (the replica farm): G's replicas, warm-up and timed farm
 # steps, and the farm steps of each profiler window; H's run_sol_sim step
@@ -384,13 +425,20 @@ N_MDD_ALCH_STEPS = 20
 # may part from the unsplit one (float32 roundoff)
 N_FARM = 4
 N_FARM_WARM = 5
-N_FARM_STEPS = 50
+N_FARM_STEPS = 20
 FARM_PROFILE_STEPS = 3
-H_EQUIL = 40
-H_PROD = 66
+H_EQUIL = 20
+H_PROD = 22
 H_DHDL_INTERVAL = 10
 I_EQUIL = 20
 I_PROD = 22
+# H's relaxation before its capped warm-ups: FIRE over FARM_FIRE
+# iterations, one of the reference protocol's blocks of 100 (it runs 400,
+# 39.7 of H's 109 s on one H100), cut with the windows' steps; the
+# windows then end at 787-805 K against 687-915 K after 400. LogP (I)
+# keeps its 400: after 100 its wet-octanol windows blew up, both end
+# points past 1e14 K (one H100)
+FARM_FIRE = 100
 J_WINDOWS = 4
 J_SPLIT_TOL = 1e-5
 # phases H and I: a lambda window whose final T is above WINDOW_BLOWUP_K
@@ -398,14 +446,14 @@ J_SPLIT_TOL = 1e-5
 # At an intermediate lambda it is the collapse that MdSim's linear
 # alchemical Coulomb allows there (no softcore, as in the reference): the
 # softcore LJ no longer holds a solute charge off an opposite solvent
-# charge. The reference's own run_sol_sim shows it at these step counts
-# (PERF.md, Open questions). Such a window is printed and left out of a
-# second dG, beside run_sol_sim's own
+# charge. The reference's own run_sol_sim shows it at H's earlier counts
+# (FIRE 400, 40 + 66 steps; PERF.md, Open questions). Such a window is
+# printed and left out of a second dG, beside run_sol_sim's own
 WINDOW_BLOWUP_K = 1e4
 # J's properties: crystal and boundary-layer steps, shrinking-box steps per
 # stage (their JAX tests run 200, 450 and 60)
-J_STEPS = 150
-J_STAGE = 30
+J_STEPS = 60
+J_STAGE = 15
 # phase K: the reference's pose budget (8^3 grid x 60 orientations, 27,360
 # poses on the fixture), the site radius cap of tests/test_pocket_fixture.py,
 # the scorer card vs CPU per term and pose within DOCK_TOL of the pose's
@@ -417,12 +465,15 @@ DOCK_ORIENTATIONS = 60
 DOCK_SITE_RADIUS = 9.0
 DOCK_TOL = 1e-5
 DOCK_TOP = 10
-# phase L: MD shots at dock_md's defaults (800 steps of 2 fs, 120 A/ps,
-# float32, FIRE 200); the reference's dock_md_multi runs 8. On one H100
-# a shot took 9.4-13.6 s (9-16 ms per step, host-bound, FIRE ~2-3 s), so
-# 8 shots (108.9 s on the slower host) overrun phases K-M's budget of
-# about 120 s beside K's ~20 s; 6 fit until phases N-P came, then 4
+# phase L: MD shots at dock_md's defaults (2 fs, 120 A/ps, float32, FIRE
+# 200) but SHOT_STEPS steps, not 800; the reference's dock_md_multi runs
+# 8. On one H100 a shot took 9.4-13.6 s (9-16 ms per step, host-bound,
+# FIRE ~2-3 s), so 8 shots (108.9 s on the slower host) overrun phases
+# K-M's budget of about 120 s beside K's ~20 s; 6 fit until phases N-P
+# came, then 4. A shot starts 8 A out (or 22-25 A where the receptor is
+# in the way) at 120 A/ps, 0.24 A a step: 33-104 steps to the site
 N_SHOTS = 4
+SHOT_STEPS = 200
 # phase M: the receptor's density in a cubic cell with DENSITY_MARGIN A on
 # each side at about DENSITY_STEP A spacing, card vs CPU within DENSITY_TOL
 # of max|rho|; atomic numbers of the fixture's elements
@@ -493,7 +544,7 @@ RIGID_TOL = 5e-3
 QS_PAD, QS_README_PAD = 11.0, 10.0
 N_QS_STEPS = 400
 O_BOX, O_REFUSED_BOX = 36.0, 35.0
-N_O_WARM, N_O_STEPS = 400, 200
+N_O_WARM, N_O_STEPS = 300, 100
 N_CKPT_STEPS = 20
 # the two continuations from a restored checkpoint on the card must be
 # bitwise equal: K2 is deterministic, and so is the rest of O's step on
@@ -569,6 +620,41 @@ MPNN_DESIGN_TOL = 1e-5
 # MPNN_PROFILE_STEPS of the 250-residue, K 48 decode (a trace of all 250,
 # ~36k kernels, takes 6-9 s to read)
 MPNN_PROFILE_STEPS = 50
+# phases V-X: the biomolecule builders. V: HP35, the villin headpiece
+# subdomain, from its sequence through the baseline predictor, an mmCIF
+# round trip (a heavy-atom file, as from a download) and prepare_peptide,
+# then build_dynamics in OPC at the quick start's MdConfig (phase N's) at a
+# pad of BIO_PAD A and run_dynamics_blocking(sim, 0.002, N_BIO_STEPS,
+# N_BIO_STEPS // 4): finite, phase N's T band, waters rigid, the solute's
+# extent below BIO_EXTENT A (the bound of tests/test_peptide.py); then
+# BASELINE config 2, tests/test_peptide.py's 12-mer in vacuum at that
+# test's MdConfig in float32 (Langevin-middle gamma 5 at 300 K, SHAKE, FIRE
+# 400) for N_CONFIG2_STEPS steps of 1 fs, 100 K < T < CONFIG2_T_MAX. W:
+# config 5's duplex of DUPLEX_SEQ (net charge -12 within
+# DUPLEX_CHARGE_TOL) at V's MdConfig and gates. X: make_membrane() dry at
+# tests/test_lipid.py's MdConfig in float32 (7 A cutoffs, Langevin-middle
+# gamma 5 at 310 K, SHAKE, FIRE 200, chunks of 50), N_MEMBRANE_STEPS steps
+# of 1 fs at MEMBRANE_FORCE_CAP: finite, T below MEMBRANE_T_MAX (the
+# reference's gate), the leaflets' P atoms more than LEAFLET_GAP A apart
+# in z; then MolEditor on the card through tests/test_editor.py's sequence
+# (ethane, its second carbon pulled 1.6x out along the C-C bond,
+# N_EDITOR_TICKS ticks: the bond shorter by more than EDITOR_RELAX A; an O
+# added mid-run)
+HP35_SEQ = "LSDEDFKAVFGMTRSAFANLPLWKQQNLKKEKGLF"
+CONFIG2_SEQ = "ASGVLFKWPHTY"
+DUPLEX_SEQ = "GATTACA"
+BIO_PAD = 10.0
+N_BIO_STEPS = 400
+N_CONFIG2_STEPS = 300
+CONFIG2_T_MAX = 700.0
+BIO_EXTENT = 120.0
+DUPLEX_CHARGE_TOL = 1e-6
+N_MEMBRANE_STEPS = 100
+MEMBRANE_FORCE_CAP = 1000.0
+MEMBRANE_T_MAX = 2000.0
+LEAFLET_GAP = 10.0
+N_EDITOR_TICKS = 6
+EDITOR_RELAX = 0.1
 
 
 def say(*a):
@@ -2911,13 +2997,15 @@ def hydration_farm_phase(asys_h, cfg_h, x_rel, torch, np):
     kernels per farm step in a profiler window, and must stay finite at
     100 K < T < 600 K per replica. Then run_sol_sim itself at the
     reference protocol's width (all 13 windows, its own MdConfig), the
-    step counts cut (H_EQUIL, H_PROD, dhdl_interval H_DHDL_INTERVAL): ms
+    step counts cut (FARM_FIRE, H_EQUIL, H_PROD, dhdl_interval
+    H_DHDL_INTERVAL): ms
     per farm step and per window step, peak memory, the relaxation path,
     dG and SEM (not gated), each window's mean dH/dlambda beside its
     float32 FD floor, and every replica finite with the protocol's shape.
     Its windows are held to window_blowups, not to the 100-600 K band: at
-    these counts its capped warm-ups are 40 + 40 steps and the box still
-    holds the strain FIRE leaves (690-915 K on the card), and an
+    these counts its capped warm-ups are 20 + 20 steps and the box still
+    holds the strain FIRE leaves (690-915 K on the card after FIRE 400,
+    787-805 K after FARM_FIRE), and an
     intermediate window may collapse (WINDOW_BLOWUP_K; ROADMAP Queue 3)."""
     from molchanica_tpu_torch.constants import ACCEL_FACTOR
     from molchanica_tpu_torch.md.alchemical import HYDRATION_LAMBDAS
@@ -3034,7 +3122,9 @@ def hydration_farm_phase(asys_h, cfg_h, x_rel, torch, np):
     with recorded_farms(torch) as farms:
         props = run_sol_sim(methanol(), equil_steps=H_EQUIL,
                             prod_steps=H_PROD,
-                            dhdl_interval=H_DHDL_INTERVAL, seed=TI_SEED)
+                            dhdl_interval=H_DHDL_INTERVAL, seed=TI_SEED,
+                            cfg_overrides=dict(
+                                max_init_relaxation_iters=FARM_FIRE))
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3424,8 +3514,8 @@ def shoot_phase(torch, np):
     """Phase L: on the fixture's specs and site, the assembled system of
     the first shot (its allpairs force and energy card vs CPU at phase
     28's gate, 1e-4 of max|F| and rel 1e-5), then dock_md_multi on the
-    card at dock_md's defaults (800 steps of 2 fs, 120 A/ps, float32,
-    FIRE 200) with N_SHOTS shots: every trace value and ligand_final
+    card at dock_md's defaults but SHOT_STEPS steps (of 2 fs, 120 A/ps,
+    float32, FIRE 200) with N_SHOTS shots: every trace value and ligand_final
     finite, each shot's closest approach to the site below its start
     distance, and the closest of all below START_DIST. A shot starts
     START_DIST out, or further where the receptor is in the way (the
@@ -3479,7 +3569,7 @@ def shoot_phase(torch, np):
     try:
         t0 = time.perf_counter()
         shots = shoot.dock_md_multi(rec, lig_s, n_shots=N_SHOTS,
-                                    site_center=c)
+                                    site_center=c, n_steps=SHOT_STEPS)
         wall = time.perf_counter() - t0
     finally:
         shoot.MdSim = base
@@ -4672,6 +4762,323 @@ def mpnn_phase(torch, np):
     return out
 
 
+def dense_or_cluster_parity(build, tag, torch):
+    """The card's force at the initial state against the CPU's: phase
+    28's allpairs gate for a dense method, phase 10's gate otherwise."""
+    md_g = build("cuda")
+    if md_g.method.startswith("allpairs"):
+        allpairs_parity(md_g, build("cpu"), md_g.method, tag, torch)
+    else:
+        md_engine_parity(lambda dev: md_g if dev == "cuda" else build(dev),
+                         torch)
+
+
+def solvated_run(tag, spec, ff_mol_type, torch, np):
+    """V's and W's path for one prepared biomolecule: MolDynamics(spec=...)
+    through build_dynamics at phase N's MdConfig at a pad of BIO_PAD A on
+    the card (FIRE at construction), its force card vs CPU at the initial
+    state (relaxation off), then run_dynamics_blocking(sim, 0.002,
+    N_BIO_STEPS, N_BIO_STEPS // 4) timed between synchronizes. Gates:
+    finite, 100 K < T < 600 K, rigid waters, four snapshots, the solute's
+    extent below BIO_EXTENT A. Returns its numbers."""
+    from molchanica_tpu_torch.md.dynamics import (MolDynamics,
+                                                  build_dynamics,
+                                                  run_dynamics_blocking)
+
+    cfg = quickstart_cfg(BIO_PAD)
+
+    def build(c, device):
+        return build_dynamics([MolDynamics(ff_mol_type=ff_mol_type,
+                                           spec=spec)], c, device=device)
+
+    t0 = time.perf_counter()
+    sim = build(cfg, "cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    a, r = sim.assembled, sim.relax_log
+    box = [float(v) for v in a.box_extent]
+    say(f"[{tag}] build_dynamics {build_s:.2f} s: {spec.n_atoms} solute "
+        f"atoms, {a.n_waters} OPC waters, {a.topology.n_atoms_real} real "
+        f"sites ({a.topology.n_atoms} padded), box {box[0]:.4f} x "
+        f"{box[1]:.4f} x {box[2]:.4f} A, method {sim.method} "
+        f"({sim._nbr_backend}); FIRE {r['iters']} iterations in "
+        f"{r['seconds']:.2f} s ({r['path']}, kept {r['kept']}), E "
+        f"{r['e_first']:.3f} -> {r['e_last']:.3f} kcal/mol")
+    t0 = time.perf_counter()
+    dense_or_cluster_parity(lambda dev: build(cfg.replace(
+        max_init_relaxation_iters=None), dev), tag, torch)
+    parity_s = time.perf_counter() - t0
+    interval = max(N_BIO_STEPS // 4, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snaps = run_dynamics_blocking(sim, 0.002, N_BIO_STEPS, interval)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    ms_step = elapsed / N_BIO_STEPS * 1e3
+    ns_day = N_BIO_STEPS * 0.002 / 1000.0 / elapsed * 86400.0
+    t_final = sim.temperature()
+    x = sim.state.positions.cpu().numpy()
+    finite = bool(np.isfinite(x).all())
+    extent = float(np.ptp(x[:a.n_solute_atoms], axis=0).max())
+    rigid = md_rigid_error(sim, np)
+    temps = snapshot_temperatures(sim, snaps, np)
+    say(f"[{tag}] force parity {parity_s:.1f} s; run_dynamics_blocking("
+        f"sim, 0.002, {N_BIO_STEPS}, {interval}): {ms_step:.4f} ms/step, "
+        f"{ns_day:.3f} ns/day, T {t_final:.2f} K, {len(snaps)} snapshots "
+        f"(T {', '.join(f'{v:.1f}' for v in temps)} K), solute extent "
+        f"{extent:.2f} A, rigid waters |d(O-H) - r_OH| {rigid:.2e} A, "
+        f"finite={finite}")
+    if not finite or not 100.0 < t_final < 600.0 or len(snaps) != 4 \
+            or not rigid < RIGID_TOL or not extent < BIO_EXTENT:
+        raise SystemExit(f"phase {tag}: finite={finite} T={t_final} "
+                         f"snapshots={len(snaps)} rigid={rigid} "
+                         f"extent={extent}")
+    return dict(method=sim.method, backend=sim._nbr_backend,
+                solute_atoms=int(spec.n_atoms),
+                sites=int(a.topology.n_atoms_real),
+                padded=int(a.topology.n_atoms), waters=int(a.n_waters),
+                box=box, build_s=build_s, fire_s=r["seconds"],
+                fire_iters=r["iters"], parity_s=parity_s,
+                ms_per_step=ms_step, ns_per_day=ns_day,
+                temperature_K=t_final, snapshot_T=temps, extent_A=extent)
+
+
+def protein_phase(torch, np):
+    """Phase V: a protein from its sequence, at full width. HP35 through
+    predict_structure(model="baseline"), write_mmcif / read_mmcif and
+    prepare_peptide; the same chain again as the CPU's path gives the
+    same MolSpec field for field; then solvated_run. Then BASELINE config
+    2: the 12-mer prepared the same way, build_dynamics in vacuum at
+    tests/test_peptide.py's MdConfig in float32 on the card, its force card
+    vs CPU at phase 28's gate, N_CONFIG2_STEPS steps of 1 fs: finite, 100 K
+    < T < CONFIG2_T_MAX, extent below BIO_EXTENT."""
+    import tempfile
+
+    from molchanica_tpu_torch.io.mmcif import read_mmcif, write_mmcif
+    from molchanica_tpu_torch.md.config import (HydrogenConstraint,
+                                                Integrator, MdConfig)
+    from molchanica_tpu_torch.md.dynamics import MolDynamics, build_dynamics
+    from molchanica_tpu_torch.molecules.peptide import prepare_peptide
+    from molchanica_tpu_torch.molecules.spec_json import spec_to_dict
+    from molchanica_tpu_torch.structure_prediction import predict_structure
+
+    def chain(seq, path):
+        write_mmcif(predict_structure(seq, model="baseline"), path)
+        return prepare_peptide(read_mmcif(path))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spec = chain(HP35_SEQ, os.path.join(tmp, "hp35.cif"))
+        prep_s = time.perf_counter() - t0
+        same = spec_to_dict(chain(HP35_SEQ, os.path.join(tmp, "b.cif"))) \
+            == spec_to_dict(spec)
+        spec12 = chain(CONFIG2_SEQ, os.path.join(tmp, "c2.cif"))
+    q = float(np.sum(spec.charges))
+    say(f"[V] HP35 {HP35_SEQ}: baseline fold, mmCIF round trip and "
+        f"prepare_peptide in {prep_s:.2f} s: {spec.n_atoms} atoms, net "
+        f"charge {q:+.6f}, {len(spec.bonds)} bonds, {len(spec.dihedrals)} "
+        f"dihedrals; the CPU path's MolSpec equal field for field: {same}")
+    if not same or abs(q - round(q)) > 1e-6:
+        raise SystemExit(f"phase V: prepared spec same={same} charge={q}")
+    out = dict(hp35=solvated_run("V", spec, "peptide", torch, np),
+               hp35_atoms=int(spec.n_atoms), hp35_charge=q, prep_s=prep_s)
+
+    cfg = MdConfig(integrator=Integrator.langevin_middle(gamma=5.0),
+                   temp_target=300.0,
+                   hydrogen_constraint=HydrogenConstraint.shake(),
+                   dtype="float32", max_init_relaxation_iters=400, seed=3)
+
+    def build(c, device):
+        return build_dynamics([MolDynamics(ff_mol_type="peptide",
+                                           spec=spec12)], c, device=device)
+
+    t0 = time.perf_counter()
+    sim = build(cfg, "cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    r = sim.relax_log
+    say(f"[V] config 2: {CONFIG2_SEQ} prepared, {spec12.n_atoms} atoms, "
+        f"net charge {float(np.sum(spec12.charges)):+.6f}, in vacuum: "
+        f"build_dynamics {build_s:.2f} s, method {sim.method}; FIRE "
+        f"{r['iters']} iterations in {r['seconds']:.2f} s ({r['path']}), E "
+        f"{r['e_first']:.3f} -> {r['e_last']:.3f} kcal/mol")
+    allpairs_parity(build(cfg.replace(max_init_relaxation_iters=None),
+                          "cuda"),
+                    build(cfg.replace(max_init_relaxation_iters=None),
+                          "cpu"), "allpairs", "V", torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.step(0.001, N_CONFIG2_STEPS)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    t_final = sim.temperature()
+    x = sim.state.positions.cpu().numpy()
+    finite = bool(np.isfinite(x).all()) and bool(
+        torch.isfinite(sim.state.pe_last))
+    extent = float(np.ptp(x[:spec12.n_atoms], axis=0).max())
+    ms_step = elapsed / N_CONFIG2_STEPS * 1e3
+    say(f"[V] config 2: {N_CONFIG2_STEPS} steps of 1 fs, {ms_step:.4f} "
+        f"ms/step, T {t_final:.2f} K, extent {extent:.2f} A, "
+        f"finite={finite}")
+    if not finite or not 100.0 < t_final < CONFIG2_T_MAX \
+            or not extent < BIO_EXTENT:
+        raise SystemExit(f"phase V config 2: finite={finite} T={t_final} "
+                         f"extent={extent}")
+    out["config2"] = dict(atoms=int(spec12.n_atoms), build_s=build_s,
+                          fire_s=r["seconds"], ms_per_step=ms_step,
+                          temperature_K=t_final, extent_A=extent)
+    return out
+
+
+def duplex_phase(torch, np):
+    """Phase W: config 5's DNA duplex, MoleculeNucleicAcid.from_seq(
+    DUPLEX_SEQ, double=True).to_spec() (the net charge -1 per phosphate
+    within DUPLEX_CHARGE_TOL), solvated through solvated_run."""
+    from molchanica_tpu_torch.molecules.nucleic_acid import \
+        MoleculeNucleicAcid
+
+    t0 = time.perf_counter()
+    na = MoleculeNucleicAcid.from_seq(DUPLEX_SEQ, double=True)
+    spec = na.to_spec()
+    build_s = time.perf_counter() - t0
+    n_p = sum(1 for e in na.common.elements if e == "P")
+    q = float(np.sum(spec.charges))
+    say(f"[W] duplex {DUPLEX_SEQ}/{DUPLEX_SEQ[::-1]} built and "
+        f"parameterized in {build_s:.2f} s: {spec.n_atoms} atoms, {n_p} "
+        f"phosphates, net charge {q:+.9f}")
+    if abs(q + n_p) > DUPLEX_CHARGE_TOL or n_p != 2 * (len(DUPLEX_SEQ) - 1):
+        raise SystemExit(f"phase W: {n_p} phosphates, charge {q}")
+    res = solvated_run("W", spec, "dna", torch, np)
+    res.update(atoms=int(spec.n_atoms), charge=q, phosphates=n_p,
+               host_build_s=build_s)
+    return res
+
+
+def membrane_editor_phase(torch, np):
+    """Phase X: make_membrane() at its defaults, assembled dry in its box
+    at tests/test_lipid.py's MdConfig in float32, MdSim on the card (FIRE
+    at construction), its force card vs CPU at the initial state
+    (relaxation off), N_MEMBRANE_STEPS steps of 1 fs at MEMBRANE_FORCE_CAP:
+    finite, T below MEMBRANE_T_MAX, the leaflets' P atoms more than
+    LEAFLET_GAP A apart in z. Then MolEditor(device=None) through
+    tests/test_editor.py's sequence: ethane with its second carbon pulled
+    out 1.6x along the C-C bond, N_EDITOR_TICKS md_step ticks (the bond
+    shorter by more than EDITOR_RELAX A), an O added mid-run (the sim
+    rebuilt lazily: 9 atoms, finite positions); its build and tick
+    times."""
+    from molchanica_tpu_torch import device as devices
+    from molchanica_tpu_torch.md.config import (HydrogenConstraint,
+                                                Integrator, MdConfig)
+    from molchanica_tpu_torch.md.engine import MdSim
+    from molchanica_tpu_torch.molecules.editor import MolEditor
+    from molchanica_tpu_torch.molecules.lipid import make_membrane
+    from molchanica_tpu_torch.molecules.spec import assemble_system
+
+    t0 = time.perf_counter()
+    mols, box = make_membrane()
+    asys = assemble_system(mols, box_extent=box, seed=1)
+    host_s = time.perf_counter() - t0
+    cfg = MdConfig(integrator=Integrator.langevin_middle(gamma=5.0),
+                   temp_target=310.0, lj_cutoff=7.0, coulomb_cutoff=7.0,
+                   hydrogen_constraint=HydrogenConstraint.shake(),
+                   dtype="float32", max_init_relaxation_iters=200,
+                   steps_per_chunk=50, seed=4)
+
+    def build(c, device):
+        return MdSim(asys.topology, c, asys.positions,
+                     box_extent=asys.box_extent, device=device)
+
+    t0 = time.perf_counter()
+    sim = build(cfg, None)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    r = sim.relax_log
+    say(f"[X] make_membrane(): {len(mols)} PC lipids, "
+        f"{asys.topology.n_atoms_real} atoms ({asys.topology.n_atoms} "
+        f"padded), box {' x '.join(f'{v:.4f}' for v in box)} A, host "
+        f"{host_s:.2f} s; MdSim on {sim.device} {build_s:.2f} s, method "
+        f"{sim.method} ({sim._nbr_backend}); FIRE {r['iters']} iterations "
+        f"in {r['seconds']:.2f} s ({r['path']}, kept {r['kept']}), E "
+        f"{r['e_first']:.3f} -> {r['e_last']:.3f} kcal/mol")
+    card = devices.resolve_device(None)
+    if sim.device != card:
+        raise SystemExit(f"phase X: MdSim on {sim.device}, not {card}")
+    dense_or_cluster_parity(lambda dev: build(cfg.replace(
+        max_init_relaxation_iters=None), dev), "X", torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.step(0.001, N_MEMBRANE_STEPS, force_cap=MEMBRANE_FORCE_CAP)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    t_final = sim.temperature()
+    x = sim.state.positions.cpu().numpy()
+    finite = bool(np.isfinite(x).all()) and bool(
+        torch.isfinite(sim.state.pe_last))
+    starts = list(asys.mol_start_indices) + [asys.n_solute_atoms]
+    pz = np.array([x[s + int(np.argmax(np.abs(np.asarray(m.masses)
+                                               - 30.97) < 0.1)), 2]
+                   for s, m in zip(starts, mols)])
+    half = len(mols) // 2
+    gap = float(pz[:half].min() - pz[half:].max())
+    ms_step = elapsed / N_MEMBRANE_STEPS * 1e3
+    say(f"[X] {N_MEMBRANE_STEPS} steps of 1 fs at force_cap "
+        f"{MEMBRANE_FORCE_CAP:g}: {ms_step:.4f} ms/step, T {t_final:.2f} K,"
+        f" leaflet P gap {gap:.3f} A (upper min z {pz[:half].min():.3f}, "
+        f"lower max z {pz[half:].max():.3f}), finite={finite}")
+    if not finite or not t_final < MEMBRANE_T_MAX or not gap > LEAFLET_GAP:
+        raise SystemExit(f"phase X membrane: finite={finite} T={t_final} "
+                         f"gap={gap}")
+    out = dict(membrane=dict(lipids=len(mols),
+                             atoms=int(asys.topology.n_atoms_real),
+                             box=[float(v) for v in box],
+                             method=sim.method, build_s=build_s,
+                             fire_s=r["seconds"], ms_per_step=ms_step,
+                             temperature_K=t_final, leaflet_gap_A=gap))
+    del sim
+
+    ed = MolEditor(dt_ps=0.0005, steps_per_tick=5)
+    c = ed.add_atom("C")
+    c2 = ed.add_atom("C", bond_to=c)
+    ed.add_hydrogens(c, count=3)
+    ed.add_hydrogens(c2, count=3)
+    pos = np.asarray(ed.mol.positions)
+    pos[1] = pos[0] + (pos[1] - pos[0]) * 1.6
+    ed.mol.positions = pos
+    d0 = float(np.linalg.norm(pos[1] - pos[0]))
+    ed.start()
+    ticks = []
+    for _ in range(N_EDITOR_TICKS):
+        t0 = time.perf_counter()
+        ed.md_step()
+        torch.cuda.synchronize()
+        ticks.append(time.perf_counter() - t0)
+    dev = ed._sim.device
+    p = np.asarray(ed.mol.positions)
+    d1 = float(np.linalg.norm(p[1] - p[0]))
+    ed.add_atom("O", bond_to=1)
+    rebuilt = ed._sim is None
+    t0 = time.perf_counter()
+    ed.md_step()
+    torch.cuda.synchronize()
+    tick_o = time.perf_counter() - t0
+    finite = bool(np.isfinite(np.asarray(ed.mol.positions)).all())
+    say(f"[X] MolEditor on {dev}: C-C {d0:.4f} -> {d1:.4f} A over "
+        f"{N_EDITOR_TICKS} ticks of 5 steps (first tick with the build and "
+        f"FIRE {ticks[0] * 1e3:.1f} ms, then "
+        f"{np.mean(ticks[1:]) * 1e3:.2f} ms per tick); O added: rebuilt "
+        f"{rebuilt}, {ed.mol.n_atoms} atoms, tick with the rebuild "
+        f"{tick_o * 1e3:.1f} ms, finite={finite}")
+    if dev != card or not d1 < d0 - EDITOR_RELAX or not rebuilt \
+            or ed.mol.n_atoms != 9 or not finite:
+        raise SystemExit(f"phase X editor: {dev} {d0} -> {d1}, rebuilt "
+                         f"{rebuilt}, {ed.mol.n_atoms} atoms, "
+                         f"finite={finite}")
+    out["editor"] = dict(d0=d0, d1=d1, first_tick_s=ticks[0],
+                         tick_ms=float(np.mean(ticks[1:]) * 1e3),
+                         rebuild_tick_s=tick_o)
+    return out
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4727,11 +5134,21 @@ def main():
     sys.path.insert(0, ROOT)
     import numpy as np
 
+    # wall seconds per phase, printed before the kernel line
+    phase_s = {}
+    t_mark = [time.perf_counter()]
+
+    def mark(key):
+        now = time.perf_counter()
+        phase_s[key] = round(now - t_mark[0], 2)
+        t_mark[0] = now
+
     # ---- 1. the card ----
     card = card_line()
     say(f"[card] {card}")
     say(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+    mark("1")
 
     # ---- 2. build ----
     from molchanica_tpu_torch import cuda_build
@@ -4745,6 +5162,7 @@ def main():
     for line in cuda_build.build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             say(f"[build] {line.strip()}")
+    mark("2")
 
     # ---- 3. the system ----
     from molchanica_tpu_torch.md.config import (HydrogenConstraint,
@@ -4781,9 +5199,11 @@ def main():
         f"S_L={sp['S_L']} S_Q={sp['S_Q']} cols={sim.plan.nx}x{sim.plan.ny} "
         f"pme={tuple(sim._recip.K)} box={float(asys.box_extent[0]):.4f} "
         f"tf32={torch.backends.cuda.matmul.allow_tf32}")
+    mark("3")
 
     # ---- 4. kernel parity ----
     entries = kernel_parity(sim, torch)
+    mark("4")
 
     # ---- 5. the main path ----
     ColpairDirect.launches.clear()
@@ -4825,9 +5245,11 @@ def main():
 
     if args.hold:
         nvt_hold(sim, args.hold, np)
+    mark("5")
 
     # ---- 6. engine parity ----
     engine_parity(build, torch)
+    mark("6")
 
     # ---- 7. MdSim on the same system ----
     from molchanica_tpu_torch.md.engine import MdSim
@@ -4848,23 +5270,29 @@ def main():
         f"C={plan.capacity} n_cells={plan.n_cells} max occupancy={occ} "
         f"side={plan.cell_side[0]:.4f} pme={md._recip.grid} "
         f"constraints={md.n_constraints}")
+    mark("7")
 
     # ---- 8. K2 parity ----
     k2 = k2_parity(md, torch)
+    mark("8")
 
     # ---- 9. the MdSim path ----
     md_res = md_path(md, [args.md_warm, args.md_steps], torch, np)
     k2["launches"] = md_res["launches"]
     entries.append(k2)
+    mark("9")
 
     # ---- 10. MdSim engine parity ----
     md_engine_parity(build_md, torch)
+    mark("10")
 
     # ---- 11. the hydration system ----
     asys_h, cfg_h, sim_h = hydration_system(torch, np)
+    mark("11")
 
     # ---- 12. K1d parity ----
     alch_entries = kernel_parity(sim_h, torch, couples=ALCH_COUPLES)
+    mark("12")
 
     # ---- 13. alchemical engine parity ----
     t0 = time.perf_counter()
@@ -4884,6 +5312,7 @@ def main():
     engine_parity(build_h, torch, lam=1.0 - ALCH_COUPLES[0],
                   tag="alch-engine")
     del sim_h
+    mark("13")
 
     # ---- 14. the TI path ----
     ti, ti_counts = ti_path(args.ti_equil, args.ti_prod, torch, np)
@@ -4893,6 +5322,7 @@ def main():
         raise SystemExit(f"TI path: a K1d instance never launched: "
                          f"{ti_counts}")
     entries[4:4] = alch_entries
+    mark("14")
 
     # ---- 15. K1c: FastSim on range tables ----
     range_entries, range_res = range_path(
@@ -4901,11 +5331,13 @@ def main():
                         per_slice_k=0, device="cuda"),
         args.range_warm, args.range_steps, torch, np)
     entries[8:8] = range_entries
+    mark("15")
 
     # ---- 16. K1f: the sharded colpair over ranks on the card ----
     shard_entries, shard_res = shard_phase(asys, d, args.shard_calls, torch,
                                            np)
     entries[12:12] = shard_entries
+    mark("16")
 
     # ---- 17. the spatial dry run on the card ----
     from molchanica_tpu_torch.parallel.dryrun import dryrun_multidevice
@@ -4913,6 +5345,7 @@ def main():
     dry = dryrun_multidevice(4, "gloo", "cuda")
     say(f"[dryrun] {time.perf_counter() - t0:.1f} s, ranks on "
         f"{torch.cuda.get_device_name(0)}")
+    mark("17")
 
     # ---- 18. K1e: FastSim on symmetric tables ----
     def build_sym(psk, per_slice_k=None):
@@ -4927,6 +5360,7 @@ def main():
     sym_range_entries, sym_range_res = range_path(
         lambda: build_sym(None, per_slice_k=0), 0, N_SYM_RANGE_STEPS, torch,
         np, tag="sym-range")
+    mark("18")
 
     # ---- 19. K1e has_alch on the hydration system ----
     sym_alch_entries = sym_alch_path(
@@ -4934,13 +5368,16 @@ def main():
                         box_extent=asys_h.box_extent, velocities=v_zero,
                         device="cuda", triangular=False),
         N_SYM_ALCH_STEPS, torch, np)
+    mark("19")
 
     # ---- 20. K1g: the cross variant on config 3 ----
     cross_entries = cross_phase(sim_sym, N_CROSS_CALLS, torch, np)
     del sim_sym
+    mark("20")
 
     # ---- 21. P: the probe ----
     probe_entry = probe_phase(torch, np)
+    mark("21")
 
     # ---- 22. NPT on config 3 ----
     from molchanica_tpu_torch.md.config import BarostatCfg
@@ -4953,15 +5390,19 @@ def main():
         args.npt_steps, torch, np)
     entries += (sym_entries + sym_range_entries + sym_alch_entries
                 + cross_entries + [probe_entry])
+    mark("22")
 
     # ---- 23. K2 on a capacity-128 grid and an nc = 3 grid ----
     k2_grids = k2_grid_phase(torch, np)
+    mark("23")
 
     # ---- 24. A: MdSim as a user gets it on config 3 ----
     md_d, mdd_init = default_md_phase(asys, d, torch, np)
+    mark("A")
 
     # ---- 25. B: the cluster list and forces on A's state ----
     clus = cluster_phase(md_d, torch, np)
+    mark("B")
 
     # ---- 26. C: A's path ----
     mdd = default_md_path(md_d, N_MDD_WARM, N_MDD_STEPS, torch, np)
@@ -4969,49 +5410,62 @@ def main():
         if args.out:
             os.makedirs(args.out, exist_ok=True)
         profile_steps(md_d, args.mdd_profile, torch, args.out, "mdd_")
+    mark("C")
 
     # ---- 27. D: NPT on the cluster path ----
     mdd_npt = default_npt_path(md_d, N_MDD_NPT_STEPS, torch, np)
     del md_d
+    mark("D")
 
     # ---- 28. E: vacuum ethanol, the verify recipe ----
     vac = vacuum_phase(N_VAC_STEPS, torch, np)
+    mark("E")
 
     # ---- 29. F: alchemical MdSim on the hydration state ----
     alch_md = alch_md_phase(asys_h, cfg_h, x_rel, v_zero, N_MDD_ALCH_STEPS,
                             torch, np)
+    mark("F")
 
     # ---- 30. G: the screening farm on K2 ----
     farm_entry, farm_k2 = farm_k2_phase(asys, d, torch, np)
     entries.append(farm_entry)
+    mark("G")
 
     # ---- 31. H: run_sol_sim on the replica farm ----
     farm_h = hydration_farm_phase(asys_h, cfg_h, x_rel, torch, np)
+    mark("H")
 
     # ---- 32. I: LogP at its default boxes ----
     logp = logp_phase(torch, np)
+    mark("I")
 
     # ---- 33. J: the replica-TI dry run and the properties ----
     props = dryrun_properties_phase(torch, np)
+    mark("J")
 
     # ---- 34. K: docking at the reference's pose budget ----
     docking = docking_phase(torch, np)
+    mark("K")
 
     # ---- 35. L: MD shooting ----
     docking["shots"] = shoot_phase(torch, np)
+    mark("L")
 
     # ---- 36. M: density and surface ----
     density = density_phase(torch, np)
+    mark("M")
 
     # ---- 37. N: the quick start (README) on the card ----
     t_nop = time.perf_counter()
     quick, sim_n, mol_n = quickstart_phase(N_QS_STEPS, torch, np)
+    mark("N")
 
     # ---- 38. O: the quick start's ligand on K2 ----
     t0 = time.perf_counter()
     lig_k2, md_o = ligand_k2_phase(N_O_WARM, N_O_STEPS, torch, np)
     k2["launches_phase_o"] = lig_k2["launches"]
     say(f"[phases] N {t0 - t_nop:.1f} s, O {time.perf_counter() - t0:.1f} s")
+    mark("O")
 
     # ---- 39. P: checkpoint, trajectory files and the viewer ----
     t0 = time.perf_counter()
@@ -5021,33 +5475,51 @@ def main():
     del md_o, sim_n
     say(f"[phases] P {time.perf_counter() - t0:.1f} s; N-P "
         f"{time.perf_counter() - t_nop:.1f} s")
+    mark("P")
 
     # ---- 40. Q: screening the library on the card ----
     t_qr = time.perf_counter()
     screen, hits, library, template, parsed = screening_phase(torch, np)
     t0 = time.perf_counter()
+    mark("Q")
 
     # ---- 41. R: alignment of the top hit, H-bonds, GROMACS export ----
     top_hit = align_hit(hits, template)
     tools = alignment_tools_phase(library[top_hit.name], template, hb_n,
                                   asys_n, cfg_n, mol_n, torch, np)
     say(f"[phases] Q {t0 - t_qr:.1f} s, R {time.perf_counter() - t0:.1f} s")
+    mark("R")
 
     # ---- 42. S: ADME inference over the library ----
     t_stu = time.perf_counter()
     adme = adme_phase(parsed, torch, np)
     t_t = time.perf_counter()
+    mark("S")
 
     # ---- 43. T: training on the card ----
     training = train_phase(parsed, torch, np)
     t_u = time.perf_counter()
+    mark("T")
 
     # ---- 44. U: ProteinMPNN ----
     mpnn = mpnn_phase(torch, np)
     say(f"[phases] S {t_t - t_stu:.1f} s, T {t_u - t_t:.1f} s, U "
         f"{time.perf_counter() - t_u:.1f} s")
+    mark("U")
 
-    # ---- 45. results ----
+    # ---- 45. V: a protein from its sequence, and config 2 ----
+    protein = protein_phase(torch, np)
+    mark("V")
+
+    # ---- 46. W: the DNA duplex of config 5 ----
+    duplex = duplex_phase(torch, np)
+    mark("W")
+
+    # ---- 47. X: the membrane and the editor's live MD ----
+    membrane = membrane_editor_phase(torch, np)
+    mark("X")
+
+    # ---- 48. results ----
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     if args.profile:
@@ -5074,8 +5546,11 @@ def main():
                            checkpoint_trajectory=ckpt_traj,
                            screening=screen, alignment_tools=tools,
                            adme=adme, training=training, mpnn=mpnn,
-                           kernels=entries),
+                           protein=protein, duplex=duplex,
+                           membrane_editor=membrane,
+                           phase_seconds=phase_s, kernels=entries),
                       fh, indent=1)
+    say("phase_seconds " + json.dumps(phase_s))
     say(json.dumps({"kernels": [
         {k: e[k] for k in ("name", "route", "source", "replaces",
                            "launches", "max_abs_err", "ms", "plain_ms",

@@ -701,10 +701,10 @@ def _farm_temperatures(farm, to_np):
 @pytest.mark.slow
 def test_reference_run_sol_sim_collapses_at_the_chip_counts(monkeypatch):
     """The witness for chip_smoke.py's window gate in phases H and I
-    (WINDOW_BLOWUP_K): the reference's own run_sol_sim, at phase H's step
-    counts and seed (FIRE over 400 iterations, 40 + 40 capped warm-up
-    steps, 40 + 66 farm steps with a recorded step after every 10, seed
-    3) and its own float32 MdConfig, on the committed methanol in a 28 A
+    (WINDOW_BLOWUP_K): the reference's own run_sol_sim, at phase H's seed
+    and its step counts before they were cut to FIRE 100 and 20 + 22 (FIRE
+    over 400 iterations, 40 + 40 capped warm-up steps, 40 + 66 farm steps
+    with a recorded step after every 10, seed 3) and its own float32 MdConfig, on the committed methanol in a 28 A
     OPC box (2,898 sites, the smallest box past 2,048, so that it runs
     cells_pme with clusters as phase H's 35 A box does). Its end-point
     windows stay finite and below 1e4 K; at least one intermediate window

@@ -166,7 +166,12 @@ def test_port_imports_no_jax():
     surface mesher, the other file formats, checkpoints, Trajectory and
     SnapshotViewer, the molecule stack and screening, the GROMACS and ORCA
     wrappers and H-bonds, the ADME models, the therapeutic pipeline and
-    ProteinMPNN among them), and chip_smoke, import without loading jax,
+    ProteinMPNN, the biomolecule builders (ff14SB and its residue
+    templates, the peptide builder and preparation, structure prediction
+    and its external shim, nucleic acids, lipids, crystal lattices, the
+    editor) and the host layers beside them (EEM and BCC charges,
+    selection, sonification, antibody, PDBbind) among them), and
+    chip_smoke, import without loading jax,
     flax or any molchanica_tpu module. The committed ADME weights load
     there too, every file but lipophilicity_astrazeneca.pkl (which the
     JAX package's test_train_and_infer_regression rewrites while the tests
@@ -217,7 +222,13 @@ def test_port_imports_no_jax():
         "'analysis.hbonds', 'models', 'models.adme', 'models.eval', "
         "'models.graph_ml', 'therapeutic', 'therapeutic.targets', "
         "'therapeutic.data', 'therapeutic.train', 'therapeutic.infer', "
-        "'therapeutic.mpnn']\n"
+        "'therapeutic.mpnn', 'ff.data.protein_ff14sb', "
+        "'molecules.geometry', 'molecules.peptide_builder', "
+        "'molecules.peptide', 'structure_prediction', 'external', "
+        "'molecules.nucleic_acid', 'molecules.lipid', 'molecules.editor', "
+        "'molecules.crystal_lattice', 'ff.charges_eem', 'ff.charges_bcc', "
+        "'ff.data.bcc_table', 'selection', 'sonification', 'antibody', "
+        "'drug_design', 'drug_design.pdbbind']\n"
         "missing = [m for m in need if 'molchanica_tpu_torch.' + m "
         "not in sys.modules]\n"
         "print(len([m for m in sys.modules "

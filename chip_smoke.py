@@ -242,12 +242,36 @@ Phases, each printed on lines of its own:
      tests/test_editor.py's sequence: the stretched bond shorter by more
      than 0.1 A after 6 ticks, an O added mid-run (rebuilt lazily, 9
      atoms, finite); build and tick times;
- 48. the per-phase wall seconds (phase_seconds), the kernel JSON line, the
+ 48. Y: the CLI (scripts/cli_phases.py runs it alone): one subprocess
+     `python3 -m molchanica_tpu_torch "fetch glucose" "characterize"
+     "energy" "minimize 50" "md 400" "predict caco2_wang CCO" "png ..."
+     "session save ..."` on its default device, the card (rc 0, 24 atoms,
+     every energy term within its printed precision of a CPU CliState's,
+     md's T in 100-600 K, the PNG decoded here 900 x 700 with >= 1% ink,
+     the session loaded on the CPU); meanwhile in this process the
+     embedded tables without pandas (row and druglike counts, glucose),
+     FastSim's general virtual-site path on phase 11's hydration system
+     with its M weights jittered by 1% (force card vs CPU at phase 6's
+     gate, 40 steps in the T band, every M at its construction within
+     1e-5 A, K1 launches 2 x the force evaluations) and `bg md 200` with
+     `energy` while it runs (the card's terms within 1e-8 of the largest
+     term of the CPU's, the merged molecule moved); then config 3's
+     current state as a 25k-site frame through render_snapshot's scene:
+     primitives, fragments, the card's render ms after a warm-up, and
+     >= 99.9% of its pixels within 2/255 of the same code on the CPU;
+ 49. the per-phase wall seconds (phase_seconds), the kernel JSON line, the
      card line, and the final JSON result line.
-     Phases 24-29, H-N and Q-X launch no hand-written kernel: the JAX
-     package computes their direct space, scorer, shots, density,
-     conformer energies and models in XLA (or numpy), so the port does it
-     in plain torch.
+     Order and processes: G runs right after 23, so that its kernel time
+     is taken while no other process shares the card. Then three worker
+     processes (this script with --worker GROUP) run V-X; I-M; and N-U
+     beside this process, which goes on with A-F, H and Y. Each
+     worker's lines are printed after its group's name when it ends; a
+     worker that fails fails the script at this process's next phase.
+     Phases 24-29, H-N, Q-X and Y's CLI launch no hand-written kernel: the
+     JAX package computes their direct space, scorer, shots, density,
+     conformer energies and models in XLA (or numpy), and its CLI,
+     renderer and tables reach no pallas_call, so the port does them in
+     plain torch (or numpy).
 An NVT hold (the mean temperature of further FastSim steps near 310 K)
 runs only when --hold N asks for it.
 
@@ -358,7 +382,8 @@ K2_GRID_COUPLED = 5
 # 100 iterations (FARM_FIRE), the properties' steps 150 -> 60 and stages
 # 30 -> 15, the MD shots' steps 800 -> 200, O's warm-up 400 -> 300 and
 # timed steps 200 -> 100 (O still ends 400 steps after FIRE, where N
-# reads its lowest T)
+# reads its lowest T). Phase Y's CLI runs `md 400`, not the CLI's default
+# 1,000 steps (N_CLI_MD), to keep Y within its 45 s
 N_TIMED = 200
 N_WARM = 50
 N_MD_TIMED = 100
@@ -655,6 +680,44 @@ MEMBRANE_T_MAX = 2000.0
 LEAFLET_GAP = 10.0
 N_EDITOR_TICKS = 6
 EDITOR_RELAX = 0.1
+# phase Y (the CLI): `md` runs N_CLI_MD steps, not the CLI's default
+# 1,000, to keep the phase within its 45 s; predict reads a target that
+# nothing in this script retrains (T writes logp_experimental). The CLI
+# prints energies to 4 decimals; the card's terms against the CPU's within
+# CLI_ENERGY_TOL of the largest term (float64). The 25k frame rasterized
+# on the card against the same code on the CPU: RENDER_SHARE of the
+# pixels within RENDER_TOL / 255 in every channel. FastSim's general vsite
+# path on the hydration system with each water's M weight scaled by
+# 1 + VSITE_JITTER N(0, 1) (seed VSITE_SEED), N_VSITE_STEPS steps, every M
+# at its construction within VSITE_TOL; the same start on the unjittered
+# system down the rolled path and (one reordered row) the gather path, T
+# within VSITE_T_REL of each other. The embedded tables' rows and
+# druglike rows as tests/test_torch_mol_db.py pins them.
+N_CLI_MD = 400
+N_BG_MD = 200
+CLI_TARGET = "caco2_wang"
+CLI_ENERGY_TOL = 1e-8
+CLI_PRINT_TOL = 5e-5
+CLI_PNG_FG = 0.01
+RENDER_TOL, RENDER_SHARE = 2, 0.999
+VSITE_JITTER, VSITE_SEED, VSITE_TOL = 0.01, 5, 1e-5
+N_VSITE_STEPS = 40
+VSITE_T_REL = 0.05
+DB_ROWS = {"metabolites_hmdb_core": (91, 81),
+           "compounds_chebi_core": (41, 40)}
+# The phases after G take no time or launch count of the kernel line and
+# depend on no state of the main process but the phases it keeps (A-F,
+# H, Y), so three worker processes run the rest beside it on the same
+# card, each group in its order: V-X; I-M; N-U (Q's library feeds S and
+# T). One process of all 49 phases took 909-967 s of the 1,200 s limit
+# on one H100 (phase seconds: V 123, I 90, H 62, W 60, N 47, A 40) and
+# more on a slower host; with the workers, 580.8-598.5 s. Every process
+# after the split gets WORKER_THREADS CPU threads (4 x 2 on the 8
+# cores); a worker still running WORKER_DEADLINE s after the script
+# started is killed and fails the run
+WORKER_GROUPS = ("VWX", "IJKLM", "NOPQRSTU")
+WORKER_THREADS = 2
+WORKER_DEADLINE = 1100.0
 
 
 def say(*a):
@@ -713,7 +776,7 @@ def engine_instances(sim, torch):
     its state's tables: the L and Q subsets of the species split (force-only
     and energy each), or the master table of the monolithic kernel."""
     st = sim.state
-    x_v = sim._apply_vsites(st.x, st.vm_of, st.box)
+    x_v = sim._apply_vsites(st.x, st, st.box)
     if sim._split is None:
         rows = torch.cat([x_v, st.props], 1)
         return [(sim._direct[we], rows, st.wl, st.nw) for we in (False, True)]
@@ -919,7 +982,7 @@ def engine_parity(build, torch, lam=None, tag="engine"):
         raise SystemExit("engine parity: CPU and card sorts differ")
     sp = st_c.split
     with torch.no_grad():
-        x_v = cpu._apply_vsites(st_c.x, st_c.vm_of, st_c.box)
+        x_v = cpu._apply_vsites(st_c.x, st_c, st_c.box)
         x_ext = torch.cat([x_v, torch.full((1, 3), 1.0e6)])
         f_abs = []
         for key in ("l", "q"):
@@ -932,7 +995,7 @@ def engine_parity(build, torch, lam=None, tag="engine"):
             f_abs.append(stats["f_abs"])
         comb = torch.cat([*f_abs, torch.zeros(1)])
         a = (comb[sp["gsrc_l"]] + comb[sp["gsrc_q"]])[:, None].repeat(1, 3)
-        a = cpu._spread_vsite_forces(a, st_c.vm_of)[:, 0]
+        a = cpu._spread_vsite_forces(a, st_c)[:, 0]
         for we in (False, True):
             fg, (_, tg) = sim._make_force_fn(we)(st_g.x, st_g)
             fc, (_, tc) = cpu._make_force_fn(we)(st_c.x, st_c)
@@ -1800,11 +1863,11 @@ def sym_engine_parity(build_sym, build_split, torch):
         colpair_plain(rows, rows.T.contiguous(), wl, nw, st.box, kern.cfg,
                       stats=stats)
         a = sym._spread_vsite_forces(stats["f_abs"][:, None].repeat(1, 3),
-                                     st.vm_of)[:, 0]
+                                     st)[:, 0]
         a64 = a.double().clamp_min(1e-30)
         r64 = rows.double()
         live = st.props[:, 4:5] > 0
-        spread = lambda f: sym._spread_vsite_forces(f, st.vm_of) * live
+        spread = lambda f: sym._spread_vsite_forces(f, st) * live
         site = lambda f: f.abs().amax(dim=1) / a64
         for we in (False, True):
             fs, (_, ts) = sym._make_force_fn(we)(st.x, st)
@@ -1816,7 +1879,7 @@ def sym_engine_parity(build_sym, build_split, torch):
             f64 = colpair_plain(r64, r64.T.contiguous(), wl, nw,
                                 st.box.double(), sym._direct[we].cfg)[0]
             d_s, d_p = (spread(e._direct_force(e._apply_vsites(
-                s.x, s.vm_of, s.box), s, we)[0].double() - f64)
+                s.x, s, s.box), s, we)[0].double() - f64)
                 for e, s in ((sym, st), (spl, st_s)))
             rest = (fs - fp).double() - (d_s - d_p)
             q_s, q_p, q_r = site(d_s), site(d_p), site(rest)
@@ -5079,6 +5142,476 @@ def membrane_editor_phase(torch, np):
     return out
 
 
+def decode_png(path, np):
+    """[H, W, 3] uint8 of an 8-bit RGB PNG with filter-0 rows, decoded
+    here with zlib and struct (apart from the port's writer)."""
+    import struct
+    import zlib
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise SystemExit(f"{path}: not a PNG")
+    pos, idat, w = 8, b"", None
+    while pos < len(data):
+        n, = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", body[:10])
+            if (depth, ctype) != (8, 2):
+                raise SystemExit(f"{path}: not 8-bit RGB")
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if (raw[:, 0] != 0).any():
+        raise SystemExit(f"{path}: a row filter other than 0")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def frame_snapshot(asys, x, t_ps, np):
+    """(Snapshot, elements, bonds) of an assembled solvated system at
+    base-order positions x: the solute with its bonds and elements (from
+    the masses), the waters' O / H1 / H2 rows, the box."""
+    from molchanica_tpu_torch.md.snapshot import Snapshot
+    from molchanica_tpu_torch.molecules.elements import ELEMENT_MASSES
+
+    top = asys.topology
+    ws, wc, stride = top.water_start, top.water_count, top.water_site_count
+    m = top.masses[:ws].numpy()
+    names = list(ELEMENT_MASSES)
+    ref = np.asarray([ELEMENT_MASSES[e] for e in names])
+    els = [names[int(np.argmin(np.abs(ref - v)))] for v in m]
+    b = top.bond_idx.numpy()
+    b = b[(top.bond_k.numpy() > 0) & (b < ws).all(axis=1)]
+    w = x[ws:ws + wc * stride].reshape(wc, stride, 3)
+    snap = Snapshot(time=t_ps, atom_posits=x[:ws], water_o_posits=w[:, 0],
+                    water_h0_posits=w[:, 1], water_h1_posits=w[:, 2],
+                    box_extent=np.asarray(asys.box_extent, float))
+    return snap, els, [tuple(map(int, r)) for r in b]
+
+
+def jittered_vsites(top, np):
+    """A copy of `top` with each vsite's weight scaled by 1 + VSITE_JITTER
+    N(0, 1): FastSim's layout test then sends it down the general path."""
+    import dataclasses
+
+    import torch
+    w = top.vsite_weight.numpy().astype(np.float64)
+    rng = np.random.default_rng(VSITE_SEED)
+    w = w * (1.0 + VSITE_JITTER * rng.normal(size=w.shape))
+    return dataclasses.replace(
+        top, vsite_weight=torch.as_tensor(w.astype(np.float32)))
+
+
+def config3_cfg():
+    """Config 3's MdConfig: Langevin-middle at 310 K, 9 A cutoffs, SHAKE,
+    float32, a neighbor rebuild every 20 steps."""
+    from molchanica_tpu_torch.md.config import (HydrogenConstraint,
+                                                Integrator, MdConfig)
+    return MdConfig(
+        integrator=Integrator.langevin_middle(gamma=1.0), temp_target=310.0,
+        lj_cutoff=9.0, coulomb_cutoff=9.0,
+        hydrogen_constraint=HydrogenConstraint.shake(), dtype="float32",
+        max_init_relaxation_iters=None, neighbor_rebuild_every=20, seed=7)
+
+
+def reordered_vsite(top, np):
+    """A copy of `top` whose first vsite row lists its parents as O, H2,
+    H1: the same M sites and forces as `top`, but FastSim's layout test
+    sends it down the general (gather) path."""
+    import dataclasses
+    idx = top.vsite_idx.clone()
+    r = int(np.flatnonzero(top.vsite_mask.numpy() > 0)[0])
+    idx[r, 2], idx[r, 3] = top.vsite_idx[r, 3], top.vsite_idx[r, 2]
+    return dataclasses.replace(top, vsite_idx=idx)
+
+
+def vsite_paths(top, cfg, x, box, n_steps, torch, np, tag, v=None):
+    """The rolled vsite path (`top`, blocked OPC) against the gather path
+    on the same physical system (`top` with one reordered row), on the
+    card from the same positions and velocities (None: at rest): the
+    temperature after the first `n_steps` steps, then two alternating
+    rounds of `n_steps` timed steps each. Returns {path: (T, [ms/step of
+    the two rounds])}."""
+    from molchanica_tpu_torch.md.fast_engine import FastSim
+    v = np.zeros_like(x) if v is None else v
+    sims = {"rolled": FastSim(top, cfg, x, box_extent=box, velocities=v,
+                              device="cuda"),
+            "gather": FastSim(reordered_vsite(top, np), cfg, x,
+                              box_extent=box, velocities=v, device="cuda")}
+    if not sims["rolled"]._vsites_rolled or sims["gather"]._vsites_rolled:
+        raise SystemExit(f"{tag}: the layouts took the wrong vsite paths")
+    res = {}
+    for name, sim in sims.items():
+        sim.step(0.002, n_steps)
+        res[name] = (sim.temperature(), [])
+    for _ in range(2):
+        for name, sim in sims.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim.step(0.002, n_steps)
+            torch.cuda.synchronize()
+            res[name][1].append((time.perf_counter() - t0) / n_steps * 1e3)
+    say(f"[{tag}] vsite paths on {top.n_atoms_real} sites from "
+        f"{'rest' if not np.any(v) else 'the given velocities'}: " + "; ".join(
+            f"{k} T {t:.2f} K after {n_steps} steps, then "
+            f"{' / '.join(f'{m:.3f}' for m in ms)} ms/step"
+            for k, (t, ms) in res.items()) + f" ({card_line()})")
+    return res
+
+
+def cli_phase(asys, x3, t3, asys_h, cfg_h, x_h, torch, np):
+    """Phase Y: the CLI slice on the card. One subprocess runs the CLI as a
+    user does (python3 -m molchanica_tpu_torch with fetch, characterize,
+    energy, minimize 50, md N_CLI_MD, predict, png, session save: its
+    default device, the card) while this process checks the embedded
+    tables without pandas, FastSim's general vsites on the hydration
+    system (phase 11's, M weights jittered: the force card vs CPU at
+    phase 6's gate, N_VSITE_STEPS steps finite with T in 100-600 K, every
+    M at its construction within VSITE_TOL, K1 launches 2 x the force
+    evaluations) and a background `bg md` with `energy` while it runs.
+    Then the subprocess's gates (rc 0; 24 atoms; every energy term within
+    its printed precision of the CPU's and the card's terms within
+    CLI_ENERGY_TOL of the CPU's; md's T finite in 100-600 K; the PNG 900 x
+    700 with >= 1% ink; the session loaded on the CPU), and the 25k-site
+    frame of config 3 (x3 at t3) rendered: primitives, fragments and
+    render ms on the card after a warm-up, and >= RENDER_SHARE of its
+    pixels within RENDER_TOL / 255 of the same code on the CPU."""
+    import importlib.util
+    import re
+    import tempfile
+
+    from molchanica_tpu_torch import cli, mol_db, render
+    from molchanica_tpu_torch.md.fast_engine import FastSim
+    from molchanica_tpu_torch.ops.colpair import ColpairDirect
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    png, sess = os.path.join(tmp, "glucose.png"), os.path.join(tmp, "s.json")
+    cmds = ["fetch glucose", "characterize", "energy", "minimize 50",
+            f"md {N_CLI_MD}", f"predict {CLI_TARGET} CCO", f"png {png}",
+            f"session save {sess}"]
+    t_sub = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "molchanica_tpu_torch",
+                             *cmds], cwd=ROOT, stdin=subprocess.DEVNULL,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        # the embedded tables on this machine
+        t0 = time.perf_counter()
+        dbs = mol_db.load_embedded_dbs()
+        rows = {k: (len(v), len(v.filter_druglike())) for k, v in dbs.items()}
+        hit = mol_db.lookup_by_name("glucose", dbs)
+        say(f"[Y] tables {rows} (pandas importable here: "
+            f"{importlib.util.find_spec('pandas') is not None}); glucose "
+            f"from {hit[0] if hit else None}: {hit[1].smiles if hit else ''}"
+            f" in {time.perf_counter() - t0:.2f} s")
+        if rows != DB_ROWS or hit is None or hit[0] != \
+                "metabolites_hmdb_core" or hit[1]["name"] != "glucose":
+            raise SystemExit(f"phase Y tables: {rows}, {hit}")
+        out["tables"] = rows
+
+        # FastSim's general virtual sites on the hydration system
+        t0 = time.perf_counter()
+        top_j = jittered_vsites(asys_h.topology, np)
+        built = {}
+
+        def build_j(device):
+            # at rest, as phases 13 and 19 start this state: 20 FIRE moves
+            # leave the fresh water fill hot enough that velocities drawn
+            # at 310 K read 615 K after 40 steps on an H100
+            built[device] = FastSim(top_j, cfg_h, x_h,
+                                    box_extent=asys_h.box_extent,
+                                    velocities=np.zeros_like(x_h),
+                                    device=device)
+            return built[device]
+
+        engine_parity(build_j, torch, tag="Y vsites")
+        sim = built["cuda"]
+        if sim._vsites_rolled or not sim._has_vsites:
+            raise SystemExit("phase Y: the jittered layout took the rolled "
+                             "vsite path")
+        ColpairDirect.launches.clear()
+        evals0 = sim.force_evals
+        t1 = time.perf_counter()
+        sim.step(0.002, N_VSITE_STEPS)
+        torch.cuda.synchronize()
+        ms_step = (time.perf_counter() - t1) / N_VSITE_STEPS * 1e3
+        n_eval = sim.force_evals - evals0
+        launches = dict(ColpairDirect.launches)
+        t_v = sim.temperature()
+        x = sim.positions_unsorted().astype(np.float64)
+        vmask = top_j.vsite_mask.numpy() > 0
+        vi = top_j.vsite_idx.numpy()[vmask]
+        w = top_j.vsite_weight.numpy()[vmask].astype(np.float64)[:, None]
+        box = np.asarray(asys_h.box_extent, np.float64)
+        mi = lambda d: d - box * np.round(d / box)
+        rel = mi(x[vi[:, 0]] - x[vi[:, 1]]) - w * (
+            mi(x[vi[:, 2]] - x[vi[:, 1]]) + mi(x[vi[:, 3]] - x[vi[:, 1]]))
+        m_err = float(np.abs(rel).max())
+        finite = bool(np.isfinite(x).all())
+        say(f"[Y] general vsites: {int(vmask.sum())} M sites, weights "
+            f"{w.min():.6f}-{w.max():.6f}; {N_VSITE_STEPS} steps "
+            f"{ms_step:.2f} ms/step, T {t_v:.1f} K, finite {finite}, M "
+            f"construction max err {m_err:.2e} A; colpair launches "
+            f"{launches} for {n_eval} force evaluations; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not (finite and 100.0 < t_v < 600.0 and m_err <= VSITE_TOL
+                and sum(launches.values()) == 2 * n_eval and n_eval > 0):
+            raise SystemExit(f"phase Y vsites: finite={finite} T={t_v} "
+                             f"M err {m_err} launches {launches} n={n_eval}")
+        del sim, built
+        # the same start on the unjittered system, down the rolled path
+        # and (one reordered row, the same physics) the gather path
+        paths = vsite_paths(asys_h.topology, cfg_h, x_h, asys_h.box_extent,
+                            N_VSITE_STEPS, torch, np, "Y")
+        t_r, t_g = paths["rolled"][0], paths["gather"][0]
+        if not abs(t_g - t_r) <= VSITE_T_REL * t_r:
+            raise SystemExit(f"phase Y vsites: the gather path's T {t_g} "
+                             f"against the rolled path's {t_r}")
+        out["vsites"] = dict(ms_step=ms_step, T=t_v, m_err=m_err,
+                             launches=sum(launches.values()),
+                             force_evals=n_eval, paths=paths)
+
+        # background MD on the card while the foreground computes
+        t0 = time.perf_counter()
+        st = cli.CliState()
+        cli.handle_cmd(st, "fetch glucose")
+        x0 = np.asarray(st.active_mol().positions).copy()
+        msg = cli.handle_cmd(st, f"bg md {N_BG_MD}")
+        name = msg.split("'")[1]
+        handle = st.task_registry().get(name)
+        e_fg = cli.handle_cmd(st, "energy")
+        overlapped = handle.running
+        terms_card = cli.energy_terms(st)
+        done = cli.handle_cmd(st, f"wait {name}")
+        moved = float(np.abs(np.asarray(st.active_mol().positions)
+                             - x0).max())
+        say(f"[Y] bg md {N_BG_MD}: energy returned while the task was "
+            f"{'still running' if overlapped else 'already done (no overlap)'}"
+            f"; {done.splitlines()[0]} {done.splitlines()[-1]}; the merged "
+            f"molecule moved {moved:.3f} A; {time.perf_counter() - t0:.1f} s")
+        if "FAILED" in done or "T =" not in done or not moved > 0.0 \
+                or "energy_potential" not in e_fg:
+            raise SystemExit(f"phase Y bg: {done!r} moved {moved}")
+        out["bg"] = dict(overlapped=overlapped, moved=moved)
+
+        # the CLI as a user runs it
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+            raise SystemExit(f"phase Y: the CLI did not finish: {stderr}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    sub_s = time.perf_counter() - t_sub
+    say("[Y] python3 -m molchanica_tpu_torch " + " ".join(
+        f'"{c}"' for c in cmds) + f": rc {proc.returncode} in {sub_s:.1f} s")
+    for line in stdout.splitlines():
+        say(f"[Y]   {line}")
+    if proc.returncode != 0:
+        raise SystemExit(f"phase Y: the CLI exited {proc.returncode}: "
+                         f"{stderr[-2000:]}")
+    cpu = cli.CliState(device="cpu")
+    cli.handle_cmd(cpu, "fetch glucose")
+    terms_cpu = cli.energy_terms(cpu)
+    scale = max(abs(v) for v in terms_cpu.values())
+    printed = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^\s*(\w+): +(-?[\d.]+) kcal/mol$", stdout, re.M)}
+    card_err = max(abs(terms_card[k] - terms_cpu[k]) for k in terms_cpu)
+    print_err = max(abs(printed.get(k, np.inf) - terms_cpu[k])
+                    for k in terms_cpu)
+    t_md = re.search(r"T = (\S+) K", stdout)
+    t_md = float(t_md.group(1)) if t_md else float("nan")
+    img = decode_png(png, np)
+    ink = float((np.abs(img.astype(np.int32) - 255).max(-1) > 0).mean())
+    back = cli.CliState(device="cpu")
+    cli.handle_cmd(back, f"session load {sess}")
+    n_back = back.active_mol().n_atoms
+    say(f"[Y] energy terms: card vs CPU max |d| {card_err:.3e} (limit "
+        f"{CLI_ENERGY_TOL * scale:.3e}), printed vs CPU {print_err:.2e}; md "
+        f"T {t_md:.1f} K; PNG {img.shape[1]} x {img.shape[0]}, ink "
+        f"{ink:.4f}; session back on the CPU: {n_back} atoms")
+    if not ("24 atoms" in stdout and card_err <= CLI_ENERGY_TOL * scale
+            and print_err <= CLI_PRINT_TOL + CLI_ENERGY_TOL * scale
+            and np.isfinite(t_md) and 100.0 < t_md < 600.0
+            and img.shape == (700, 900, 3) and ink >= CLI_PNG_FG
+            and n_back == 24 and f"{CLI_TARGET}(CCO) = " in stdout):
+        raise SystemExit("phase Y: the CLI's gates failed")
+    out["cli"] = dict(seconds=sub_s, card_err=card_err, print_err=print_err,
+                      md_T=t_md, png_ink=ink)
+
+    # a 25k-site frame of config 3
+    snap, els, bonds = frame_snapshot(asys, x3, t3, np)
+    sc = render.snapshot_scene(snap, els, bonds)
+    title = render.snapshot_title(snap)
+    t0 = time.perf_counter()
+    p = sc.primitives()
+    prim_s = time.perf_counter() - t0
+    stats = {}
+    render.rasterize(p, title=title, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img_g = render.rasterize(p, title=title, device="cuda", stats=stats)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    img_c = render.rasterize(p, title=title, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    d = (img_g.cpu().int() - img_c.int()).abs().amax(-1)
+    share = float((d <= RENDER_TOL).double().mean())
+    say(f"[Y] frame at t = {t3:.2f} ps: {len(snap.atom_posits)} solute "
+        f"atoms, {len(snap.water_o_posits)} waters, {len(p)} primitives "
+        f"({prim_s * 1e3:.1f} ms on the host), {stats['fragments']} "
+        f"fragments; rasterized in {ms:.2f} ms on the card "
+        f"({card_line()}), {cpu_s:.2f} s on the CPU; pixels within "
+        f"{RENDER_TOL}/255 of the CPU's: {share:.6f} (max {int(d.max())})")
+    if share < RENDER_SHARE:
+        raise SystemExit(f"phase Y render: {share} < {RENDER_SHARE}")
+    out["render"] = dict(primitives=len(p), fragments=stats["fragments"],
+                         ms=ms, cpu_s=cpu_s, share=share)
+    return out
+
+
+def run_worker(group, out_path, torch, np):
+    """One of WORKER_GROUPS in this process (chip_smoke.py --worker GROUP
+    --worker-out PATH), each phase with its gates as in the whole script;
+    writes {"phase_seconds": ..., "results": ...} to out_path as JSON."""
+    from molchanica_tpu_torch import cuda_build
+    cuda_build.build()
+    phase_s, res = {}, {}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        phase_s[key] = round(time.perf_counter() - t0, 2)
+        return r
+
+    if group == "VWX":
+        res["protein"] = timed("V", lambda: protein_phase(torch, np))
+        res["duplex"] = timed("W", lambda: duplex_phase(torch, np))
+        res["membrane_editor"] = timed(
+            "X", lambda: membrane_editor_phase(torch, np))
+    elif group == "IJKLM":
+        res["logp"] = timed("I", lambda: logp_phase(torch, np))
+        res["properties"] = timed(
+            "J", lambda: dryrun_properties_phase(torch, np))
+        res["docking"] = timed("K", lambda: docking_phase(torch, np))
+        res["docking"]["shots"] = timed("L", lambda: shoot_phase(torch, np))
+        res["density"] = timed("M", lambda: density_phase(torch, np))
+    elif group == "NOPQRSTU":
+        res["quickstart"], sim_n, mol_n = timed(
+            "N", lambda: quickstart_phase(N_QS_STEPS, torch, np))
+        res["ligand_k2"], md_o = timed(
+            "O", lambda: ligand_k2_phase(N_O_WARM, N_O_STEPS, torch, np))
+        res["checkpoint_trajectory"] = timed(
+            "P", lambda: checkpoint_trajectory_phase(md_o, sim_n, mol_n,
+                                                     torch, np))
+        hb_n = hbond_inputs(sim_n, mol_n, np)
+        asys_n, cfg_n = sim_n.assembled, sim_n.cfg
+        del md_o, sim_n
+        res["screening"], hits, library, template, parsed = timed(
+            "Q", lambda: screening_phase(torch, np))
+        top_hit = align_hit(hits, template)
+        res["alignment_tools"] = timed("R", lambda: alignment_tools_phase(
+            library[top_hit.name], template, hb_n, asys_n, cfg_n, mol_n,
+            torch, np))
+        res["adme"] = timed("S", lambda: adme_phase(parsed, torch, np))
+        res["training"] = timed("T", lambda: train_phase(parsed, torch, np))
+        res["mpnn"] = timed("U", lambda: mpnn_phase(torch, np))
+    else:
+        raise SystemExit(f"chip_smoke --worker: no group {group!r}")
+    say(f"[worker {group}] phase_seconds {json.dumps(phase_s)}")
+    with open(out_path, "w") as fh:
+        json.dump(dict(phase_seconds=phase_s, results=res), fh, default=str)
+
+
+def start_workers():
+    """Start one process per WORKER_GROUPS entry (this script with
+    --worker), WORKER_THREADS CPU threads each, their output to log files
+    in a new temporary directory; an exit handler kills whatever still
+    runs when this process ends. Returns [(group, Popen, log, out)]."""
+    import atexit
+    import ctypes
+    import signal
+    import tempfile
+
+    # a SIGTERM ends this process through its exit handlers, and a worker
+    # gets SIGKILL when this process dies by any other way
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    libc = ctypes.CDLL(None, use_errno=True)
+
+    def die_with_parent():
+        libc.prctl(1, signal.SIGKILL)      # PR_SET_PDEATHSIG
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_workers_")
+    env = dict(os.environ, OMP_NUM_THREADS=str(WORKER_THREADS),
+               OPENBLAS_NUM_THREADS=str(WORKER_THREADS),
+               MKL_NUM_THREADS=str(WORKER_THREADS))
+    workers = []
+    for group in WORKER_GROUPS:
+        log = os.path.join(tmp, f"{group}.log")
+        out = os.path.join(tmp, f"{group}.json")
+        with open(log, "w") as fh:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--worker",
+                 group, "--worker-out", out], cwd=ROOT,
+                stdin=subprocess.DEVNULL, stdout=fh,
+                stderr=subprocess.STDOUT, env=env,
+                preexec_fn=die_with_parent)
+        workers.append((group, proc, log, out))
+
+    def kill():
+        for _, proc, _, _ in workers:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    atexit.register(kill)
+    return workers
+
+
+def relay_worker(group, rc, log):
+    """Print a worker's log, each line after its group's name."""
+    with open(log) as fh:
+        for line in fh:
+            say(f"{group} | {line.rstrip()}")
+    say(f"[workers] {group}: exit {rc}")
+
+
+def check_workers(workers):
+    """Fail at once when a worker has exited non-zero."""
+    for group, proc, log, _ in workers:
+        rc = proc.poll()
+        if rc not in (None, 0):
+            relay_worker(group, rc, log)
+            raise SystemExit(f"chip_smoke: worker {group} failed (exit {rc})")
+
+
+def finish_workers(workers, deadline):
+    """Wait for every worker until `deadline` (time.time()), print its log
+    and merge its phase seconds and results. Fails when a worker fails or
+    is still running at the deadline (it is killed)."""
+    secs, res = {}, {}
+    for group, proc, log, out in workers:
+        try:
+            rc = proc.wait(timeout=max(1.0, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "killed at the deadline"
+        relay_worker(group, rc, log)
+        if rc != 0:
+            raise SystemExit(f"chip_smoke: worker {group} failed ({rc})")
+        with open(out) as fh:
+            data = json.load(fh)
+        secs.update(data["phase_seconds"])
+        res.update(data["results"])
+    return secs, res
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5124,7 +5657,11 @@ def main():
                     "default MdSim")
     ap.add_argument("--out", metavar="DIR",
                     help="write chip_smoke.json (and profile.txt) here")
+    ap.add_argument("--worker", choices=WORKER_GROUPS,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--worker-out", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    t_start = time.time()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -5133,15 +5670,20 @@ def main():
                          "repository (molchanica_tpu_torch/ not found)")
     sys.path.insert(0, ROOT)
     import numpy as np
+    if args.worker:
+        run_worker(args.worker, args.worker_out, torch, np)
+        return
 
     # wall seconds per phase, printed before the kernel line
     phase_s = {}
     t_mark = [time.perf_counter()]
+    workers = []
 
     def mark(key):
         now = time.perf_counter()
         phase_s[key] = round(now - t_mark[0], 2)
         t_mark[0] = now
+        check_workers(workers)
 
     # ---- 1. the card ----
     card = card_line()
@@ -5165,8 +5707,6 @@ def main():
     mark("2")
 
     # ---- 3. the system ----
-    from molchanica_tpu_torch.md.config import (HydrogenConstraint,
-                                                Integrator, MdConfig)
     from molchanica_tpu_torch.md.fast_engine import FastSim
     from molchanica_tpu_torch.ops.colpair import ColpairDirect
     from molchanica_tpu_torch.systems.bench_systems import \
@@ -5178,11 +5718,7 @@ def main():
     if d["x"].shape != asys.positions.shape or not np.allclose(
             d["box"], np.asarray(asys.box_extent)):
         raise SystemExit("eq25k.npz does not match the built system")
-    cfg = MdConfig(
-        integrator=Integrator.langevin_middle(gamma=1.0), temp_target=310.0,
-        lj_cutoff=9.0, coulomb_cutoff=9.0,
-        hydrogen_constraint=HydrogenConstraint.shake(), dtype="float32",
-        max_init_relaxation_iters=None, neighbor_rebuild_every=20, seed=7)
+    cfg = config3_cfg()
     say(f"[system] built {asys.topology.n_atoms_real} sites in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -5396,6 +5932,20 @@ def main():
     k2_grids = k2_grid_phase(torch, np)
     mark("23")
 
+    # ---- 30. G: the screening farm on K2 (its kernel time before any
+    # other process shares the card) ----
+    farm_entry, farm_k2 = farm_k2_phase(asys, d, torch, np)
+    entries.append(farm_entry)
+    mark("G")
+
+    # ---- the phases I-X in worker processes beside this one ----
+    t_split = time.perf_counter()
+    workers += start_workers()
+    torch.set_num_threads(WORKER_THREADS)
+    say(f"[workers] {', '.join(WORKER_GROUPS)} started "
+        f"{time.time() - t_start:.1f} s after the start, "
+        f"{WORKER_THREADS} CPU threads per process")
+
     # ---- 24. A: MdSim as a user gets it on config 3 ----
     md_d, mdd_init = default_md_phase(asys, d, torch, np)
     mark("A")
@@ -5426,100 +5976,26 @@ def main():
                             torch, np)
     mark("F")
 
-    # ---- 30. G: the screening farm on K2 ----
-    farm_entry, farm_k2 = farm_k2_phase(asys, d, torch, np)
-    entries.append(farm_entry)
-    mark("G")
-
     # ---- 31. H: run_sol_sim on the replica farm ----
     farm_h = hydration_farm_phase(asys_h, cfg_h, x_rel, torch, np)
     mark("H")
 
-    # ---- 32. I: LogP at its default boxes ----
-    logp = logp_phase(torch, np)
-    mark("I")
+    # ---- 48. Y: the CLI, its tables, background work, the renderer, and
+    # FastSim's general vsites ----
+    cli_res = cli_phase(asys, sim.positions_unsorted(),
+                        sim.step_count * dt, asys_h, cfg_h, x_rel, torch, np)
+    mark("Y")
 
-    # ---- 33. J: the replica-TI dry run and the properties ----
-    props = dryrun_properties_phase(torch, np)
-    mark("J")
+    # ---- the workers' phases ----
+    secs, wres = finish_workers(workers, t_start + WORKER_DEADLINE)
+    mark("wait")
+    phase_s.update(secs)
+    say(f"[workers] this process and the workers from the split: "
+        f"{time.perf_counter() - t_split:.1f} s; the script so far "
+        f"{time.time() - t_start:.1f} s")
+    k2["launches_phase_o"] = wres["ligand_k2"]["launches"]
 
-    # ---- 34. K: docking at the reference's pose budget ----
-    docking = docking_phase(torch, np)
-    mark("K")
-
-    # ---- 35. L: MD shooting ----
-    docking["shots"] = shoot_phase(torch, np)
-    mark("L")
-
-    # ---- 36. M: density and surface ----
-    density = density_phase(torch, np)
-    mark("M")
-
-    # ---- 37. N: the quick start (README) on the card ----
-    t_nop = time.perf_counter()
-    quick, sim_n, mol_n = quickstart_phase(N_QS_STEPS, torch, np)
-    mark("N")
-
-    # ---- 38. O: the quick start's ligand on K2 ----
-    t0 = time.perf_counter()
-    lig_k2, md_o = ligand_k2_phase(N_O_WARM, N_O_STEPS, torch, np)
-    k2["launches_phase_o"] = lig_k2["launches"]
-    say(f"[phases] N {t0 - t_nop:.1f} s, O {time.perf_counter() - t0:.1f} s")
-    mark("O")
-
-    # ---- 39. P: checkpoint, trajectory files and the viewer ----
-    t0 = time.perf_counter()
-    ckpt_traj = checkpoint_trajectory_phase(md_o, sim_n, mol_n, torch, np)
-    hb_n = hbond_inputs(sim_n, mol_n, np)
-    asys_n, cfg_n = sim_n.assembled, sim_n.cfg
-    del md_o, sim_n
-    say(f"[phases] P {time.perf_counter() - t0:.1f} s; N-P "
-        f"{time.perf_counter() - t_nop:.1f} s")
-    mark("P")
-
-    # ---- 40. Q: screening the library on the card ----
-    t_qr = time.perf_counter()
-    screen, hits, library, template, parsed = screening_phase(torch, np)
-    t0 = time.perf_counter()
-    mark("Q")
-
-    # ---- 41. R: alignment of the top hit, H-bonds, GROMACS export ----
-    top_hit = align_hit(hits, template)
-    tools = alignment_tools_phase(library[top_hit.name], template, hb_n,
-                                  asys_n, cfg_n, mol_n, torch, np)
-    say(f"[phases] Q {t0 - t_qr:.1f} s, R {time.perf_counter() - t0:.1f} s")
-    mark("R")
-
-    # ---- 42. S: ADME inference over the library ----
-    t_stu = time.perf_counter()
-    adme = adme_phase(parsed, torch, np)
-    t_t = time.perf_counter()
-    mark("S")
-
-    # ---- 43. T: training on the card ----
-    training = train_phase(parsed, torch, np)
-    t_u = time.perf_counter()
-    mark("T")
-
-    # ---- 44. U: ProteinMPNN ----
-    mpnn = mpnn_phase(torch, np)
-    say(f"[phases] S {t_t - t_stu:.1f} s, T {t_u - t_t:.1f} s, U "
-        f"{time.perf_counter() - t_u:.1f} s")
-    mark("U")
-
-    # ---- 45. V: a protein from its sequence, and config 2 ----
-    protein = protein_phase(torch, np)
-    mark("V")
-
-    # ---- 46. W: the DNA duplex of config 5 ----
-    duplex = duplex_phase(torch, np)
-    mark("W")
-
-    # ---- 47. X: the membrane and the editor's live MD ----
-    membrane = membrane_editor_phase(torch, np)
-    mark("X")
-
-    # ---- 48. results ----
+    # ---- 49. results ----
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     if args.profile:
@@ -5540,16 +6016,9 @@ def main():
                            k2_grids=k2_grids, mdd_init=mdd_init,
                            clusters=clus, mdd=mdd, mdd_npt=mdd_npt,
                            vacuum=vac, alch_md=alch_md, farm_k2=farm_k2,
-                           farm_h=farm_h, logp=logp, properties=props,
-                           docking=docking, density=density,
-                           quickstart=quick, ligand_k2=lig_k2,
-                           checkpoint_trajectory=ckpt_traj,
-                           screening=screen, alignment_tools=tools,
-                           adme=adme, training=training, mpnn=mpnn,
-                           protein=protein, duplex=duplex,
-                           membrane_editor=membrane,
-                           phase_seconds=phase_s, kernels=entries),
-                      fh, indent=1)
+                           farm_h=farm_h, cli=cli_res,
+                           **wres, phase_seconds=phase_s, kernels=entries),
+                      fh, indent=1, default=str)
     say("phase_seconds " + json.dumps(phase_s))
     say(json.dumps({"kernels": [
         {k: e[k] for k in ("name", "route", "source", "replaces",

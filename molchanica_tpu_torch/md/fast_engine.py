@@ -127,10 +127,13 @@ class FastState:
     p14_idx: torch.Tensor
     intra_idx: torch.Tensor  # [P, 2] coupled-molecule internal pairs
     hc_idx: torch.Tensor     # [C, 4] heavy + 3 H; pads at S (tables)
+    vsite_idx: torch.Tensor  # [V, 4] M, O, H1, H2 slots; pads at S
     # per-slot ownership tables, rebuilt with the sort:
     w_of: torch.Tensor       # water row owning this slot (NW = none)
     w_role: torch.Tensor     # 0=O 1=H1 2=H2 within that water, -1 = none
     vm_of: torch.Tensor      # vsite row whose M site is this slot (V = none)
+    vp_of: torch.Tensor      # vsite row this slot parents (V = none)
+    vp_role: torch.Tensor    # 1=O 2=H1 3=H2 parent role, -1 = none
     hc_of: torch.Tensor      # H-cluster row owning this slot (C = none)
     hc_role: torch.Tensor    # 0=heavy 1..3=H member, -1 = none
     # species-split subset tables ({} when the split is off): idx_*/props_*
@@ -277,16 +280,18 @@ class FastSim:
             self.n_h_constraints = 0
         self.n_constraints = 3 * self.n_waters + self.n_h_constraints
 
-        # vsites: only the blocked 4-site-water layout (M = O + 3 in the
-        # block, one shared weight), applied and spread by torch.roll
+        # vsites: the blocked 4-site-water layout (M = O + 3 in the block,
+        # one shared weight) is applied and spread by torch.roll; any other
+        # layout by gathers through the [S] role tables
         vs = _np(top.vsite_idx)
         vmask = _np(top.vsite_mask) > 0
         self._has_vsites = bool(vmask.any())
-        self._vs_w = 0.0
+        self._vsites_rolled = False
+        self._vs_w_scalar = 0.0
         if self._has_vsites:
             vw = _np(top.vsite_weight)[vmask]
             vv = vs[vmask]
-            rolled = bool(
+            self._vsites_rolled = bool(
                 self._wstride == 4
                 and vv.shape[0] == top.water_count
                 and (vv[:, 0] == vv[:, 1] + 3).all()
@@ -294,14 +299,13 @@ class FastSim:
                 and (vv[:, 3] == vv[:, 1] + 2).all()
                 and ((vv[:, 1] - self._ws) % 4 == 0).all()
                 and np.allclose(vw, vw[0]))
-            if not rolled:
-                raise NotImplementedError(
-                    "FastSim virtual sites must be blocked 4-site-water M "
-                    "sites with one shared weight")
-            self._vs_w = float(vw[0])
+            if self._vsites_rolled:
+                self._vs_w_scalar = float(vw[0])
             self._vs_base = T(np.where(vmask[:, None], vs, n_base), **i64)
+            self._vs_w = T(_np(top.vsite_weight).astype(np.float32))
         else:
             self._vs_base = T(np.full((1, 4), n_base), **i64)
+            self._vs_w = torch.zeros((1,), **f32)
 
         self._settle_geom = (settle_params(top.water_r_oh,
                                            top.water_theta_hoh, 15.999,
@@ -485,6 +489,7 @@ class FastSim:
             dof=self._dof_base[perm_init], wl=None, nw=None,
             bond_idx=None, angle_idx=None, dihedral_idx=None, excl_idx=None,
             p14_idx=None, intra_idx=None, hc_idx=self._hc_idx_base,
+            vsite_idx=self._vs_base,
             f=torch.zeros((S, 3), **f32), box=T(box_np),
             couple=torch.ones((), **f32), step=0,
             overflow=torch.zeros((), **i64), pe_last=zero_f,
@@ -530,9 +535,10 @@ class FastSim:
 
         w_of, w_role = tables(widx, [0, 1, 2])
         vm_of, _ = tables(vsite_idx[:, 0:1], [0])
+        vp_of, vp_role = tables(vsite_idx[:, 1:], [1, 2, 3])
         hc_of, hc_role = tables(hc_idx, [0, 1, 2, 3])
-        return dict(w_of=w_of, w_role=w_role, vm_of=vm_of,
-                    hc_of=hc_of, hc_role=hc_role)
+        return dict(w_of=w_of, w_role=w_role, vm_of=vm_of, vp_of=vp_of,
+                    vp_role=vp_role, hc_of=hc_of, hc_role=hc_role)
 
     # ------------------------------------------------------------------
     def _subset_tables(self, perm_new, keys, col_start, x_new, props_new,
@@ -616,8 +622,7 @@ class FastSim:
         there."""
         # vsites are never moved by the integrator: refresh them from their
         # parents before sorting
-        xb = self._to_base(st, self._apply_vsites(st.x, st.vm_of, st.box),
-                           1.0e6)
+        xb = self._to_base(st, self._apply_vsites(st.x, st, st.box), 1.0e6)
         box = st.box
         xw = xb - box * torch.floor(xb / box)             # per-atom wrap
         if self._n_wsites:
@@ -685,36 +690,58 @@ class FastSim:
             excl_idx=gather_idx(self._excl_idx_base),
             p14_idx=gather_idx(bp["pair14_idx"]),
             intra_idx=gather_idx(self._im_idx_base),
-            hc_idx=hc_new, overflow=st.overflow | ovf,
+            hc_idx=hc_new, vsite_idx=vsite_new, overflow=st.overflow | ovf,
             **self._merge_tables(widx_new, vsite_new, hc_new))
 
     # ------------------------------------------------------------------
-    # Vsites on the blocked layout: O at M-3, H1 at M-2, H2 at M-1. The M
+    # Vsites. Blocked layout: O at M-3, H1 at M-2, H2 at M-1; the M
     # position is computed "as if every slot were an O", shifted +3 onto
-    # the M slots and masked in; the M force goes back the same way.
-    def _apply_vsites(self, x, vm_of, box):
+    # the M slots and masked in, and the M force goes back the same way.
+    # Any other layout: each M slot and parent slot pulls its update
+    # through the [S] role tables (vm_of, vp_of / vp_role). `st` supplies
+    # the sorted vsite rows and tables.
+    def _apply_vsites(self, x, st: FastState, box):
         if not self._has_vsites:
             return x
-        w = self._vs_w
-        d1 = minimum_image(torch.roll(x, -1, 0) - x, box)
-        d2 = minimum_image(torch.roll(x, -2, 0) - x, box)
-        xm = x + w * (d1 + d2)
-        m_m = (vm_of < self._vs_base.shape[0])[:, None]
-        return torch.where(m_m, torch.roll(xm, 3, 0), x)
+        V = self._vs_base.shape[0]
+        if self._vsites_rolled:
+            w = self._vs_w_scalar
+            d1 = minimum_image(torch.roll(x, -1, 0) - x, box)
+            d2 = minimum_image(torch.roll(x, -2, 0) - x, box)
+            xm = x + w * (d1 + d2)
+            m_m = (st.vm_of < V)[:, None]
+            return torch.where(m_m, torch.roll(xm, 3, 0), x)
+        idx = torch.clamp_max(st.vsite_idx, x.shape[0] - 1)
+        xo = x[idx[:, 1]]
+        d1 = minimum_image(x[idx[:, 2]] - xo, box)
+        d2 = minimum_image(x[idx[:, 3]] - xo, box)
+        xm = xo + self._vs_w[:, None] * (d1 + d2)               # [V, 3]
+        xm_ext = torch.cat([xm, torch.zeros_like(xm[:1])])
+        cand = xm_ext[torch.clamp_max(st.vm_of, V)]
+        return torch.where((st.vm_of < V)[:, None], cand, x)
 
-    def _spread_vsite_forces(self, f, vm_of):
+    def _spread_vsite_forces(self, f, st: FastState):
         if not self._has_vsites:
             return f
-        w = self._vs_w
-        m_m = (vm_of < self._vs_base.shape[0])[:, None]
+        V = self._vs_base.shape[0]
+        m_m = (st.vm_of < V)[:, None]
         zero = torch.zeros_like(f)
-        add = (torch.where(torch.roll(m_m, -3, 0),
-                           (1.0 - 2.0 * w) * torch.roll(f, -3, 0), zero)
-               + torch.where(torch.roll(m_m, -2, 0),
-                             w * torch.roll(f, -2, 0), zero)
-               + torch.where(torch.roll(m_m, -1, 0),
-                             w * torch.roll(f, -1, 0), zero))
-        return torch.where(m_m, zero, f + add)
+        if self._vsites_rolled:
+            w = self._vs_w_scalar
+            add = (torch.where(torch.roll(m_m, -3, 0),
+                               (1.0 - 2.0 * w) * torch.roll(f, -3, 0), zero)
+                   + torch.where(torch.roll(m_m, -2, 0),
+                                 w * torch.roll(f, -2, 0), zero)
+                   + torch.where(torch.roll(m_m, -1, 0),
+                                 w * torch.roll(f, -1, 0), zero))
+            return torch.where(m_m, zero, f + add)
+        fm = f[torch.clamp_max(st.vsite_idx[:, 0], f.shape[0] - 1)]  # [V, 3]
+        row = torch.clamp_max(st.vp_of, V)
+        g = torch.cat([fm, torch.zeros_like(fm[:1])])[row]        # [S, 3]
+        w = torch.cat([self._vs_w, torch.zeros_like(self._vs_w[:1])])[row]
+        coef = torch.where(st.vp_role == 1, 1.0 - 2.0 * w, w)
+        f = torch.where((st.vp_of < V)[:, None], f + coef[:, None] * g, f)
+        return torch.where(m_m, zero, f)
 
     # ------------------------------------------------------------------
     def _direct_force(self, x_v, st: FastState, want_energy):
@@ -852,7 +879,7 @@ class FastSim:
             box = st.box
             couple = st.couple
             props = st.props
-            x_v = self._apply_vsites(x, st.vm_of, box)
+            x_v = self._apply_vsites(x, st, box)
             f_dir, e_lj, e_c = self._direct_force(x_v, st, want_energy)
             cm = props[:, 3]
             q_plain = props[:, 0] / sqrt_kc
@@ -872,7 +899,7 @@ class FastSim:
             f = f_dir - g
             if g_recip is not None:
                 f = f - (g_recip if rw == 1.0 else rw * g_recip)
-            f = self._spread_vsite_forces(f, st.vm_of)
+            f = self._spread_vsite_forces(f, st)
             f = f * (props[:, 4:5] > 0)      # col 4 is group id, not 0/1
             e_tot = e_rest + e_lj + e_c
             terms.update(lj=e_lj, coulomb=e_c, energy_potential=e_tot,
@@ -1280,7 +1307,7 @@ class FastSim:
     def positions_unsorted(self) -> np.ndarray:
         """Positions in base order [n_base, 3], vsites refreshed."""
         st = self.state
-        x = self._apply_vsites(st.x, st.vm_of, st.box)
+        x = self._apply_vsites(st.x, st, st.box)
         out = torch.zeros((self.n_base + 1, 3), dtype=x.dtype,
                           device=x.device)
         out[st.perm] = x

@@ -293,13 +293,13 @@ def test_fastsim_sym_matches_split_engine(pair_sym):
     assert torch.equal(split.state.perm, ts.state.perm)
     st = ts.state
     with torch.no_grad():
-        rows = torch.cat([ts._apply_vsites(st.x, st.vm_of, st.box),
+        rows = torch.cat([ts._apply_vsites(st.x, st, st.box),
                           st.props], 1)
         stats = {}
         T.colpair_plain(rows, rows.T.contiguous(), st.wl, st.nw, st.box,
                         ts._direct[False].cfg, stats=stats)
         a = ts._spread_vsite_forces(stats["f_abs"][:, None].repeat(1, 3),
-                                    st.vm_of)[:, 0]
+                                    st)[:, 0]
         st_p = split.state.replace(x=st.x)
         for we in (False, True):
             fs, (_, tsym) = ts._make_force_fn(we)(st.x, st)

@@ -170,10 +170,13 @@ def test_port_imports_no_jax():
     templates, the peptide builder and preparation, structure prediction
     and its external shim, nucleic acids, lipids, crystal lattices, the
     editor) and the host layers beside them (EEM and BCC charges,
-    selection, sonification, antibody, PDBbind) among them), and
-    chip_smoke, import without loading jax,
-    flax or any molchanica_tpu module. The committed ADME weights load
-    there too, every file but lipophilicity_astrazeneca.pkl (which the
+    selection, sonification, antibody, PDBbind), the CLI with its
+    background tasks, the renderer and the molecule databases (cli, tasks,
+    render, mol_db, __main__) among them), and chip_smoke, import without
+    loading jax, flax or any molchanica_tpu module, nor pandas, pyarrow or
+    matplotlib (the port needs none of them; the card's machine has no
+    matplotlib). Importing __main__ this way does not start the CLI. The
+    committed ADME weights load there too, every file but lipophilicity_astrazeneca.pkl (which the
     JAX package's test_train_and_infer_regression rewrites while the tests
     run): 32 arrays and 49,193 parameters each."""
     code = (
@@ -196,7 +199,8 @@ def test_port_imports_no_jax():
         "    assert len(sd) == 32 and sum(v.numel() for v in "
         "sd.values()) == 49193, q\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'molchanica_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'molchanica_tpu', 'pandas', 'pyarrow', "
+        "'matplotlib')]\n"
         "need = ['md.engine', 'md.energy', 'md.constraints', 'md.state', "
         "'ops.direct_force', 'ops.nonbonded', 'ops.pme', 'cuda_build', "
         "'md.alchemical', 'properties.water_sol', 'molecules.spec_json', "
@@ -228,7 +232,8 @@ def test_port_imports_no_jax():
         "'molecules.nucleic_acid', 'molecules.lipid', 'molecules.editor', "
         "'molecules.crystal_lattice', 'ff.charges_eem', 'ff.charges_bcc', "
         "'ff.data.bcc_table', 'selection', 'sonification', 'antibody', "
-        "'drug_design', 'drug_design.pdbbind']\n"
+        "'drug_design', 'drug_design.pdbbind', 'cli', 'tasks', 'render', "
+        "'mol_db', '__main__']\n"
         "missing = [m for m in need if 'molchanica_tpu_torch.' + m "
         "not in sys.modules]\n"
         "print(len([m for m in sys.modules "

@@ -1229,11 +1229,11 @@ def k2_grid_phase(torch, np, dev="cuda"):
 def md_path(md, calls, torch, np, tag="md"):
     """The MdSim path: md.step(0.002, n) for each n in calls, K2 launches
     counted over exactly those calls; the last call timed."""
-    from molchanica_tpu_torch.ops.direct_force import DirectForce
+    from molchanica_tpu_torch import tracing
 
     dt = 0.002
     k = md.cfg.neighbor_rebuild_every
-    DirectForce.launches = 0
+    tracing.reset_counters("direct_force")
     evals0 = md.force_evals
     for n in calls[:-1]:
         t0 = time.perf_counter()
@@ -1245,7 +1245,7 @@ def md_path(md, calls, torch, np, tag="md"):
     md.step(dt, n)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = DirectForce.launches
+    launches = tracing.counters().get("direct_force", 0)
     n_eval = md.force_evals - evals0
     # a call of more than steps_per_chunk steps runs as calls of at most
     # steps_per_chunk, each n + ceil(n/k) + 1 force evaluations
@@ -1345,12 +1345,12 @@ def ti_path(n_equil, n_prod, torch, np):
     """Phase 14: run_sol_sim_fast(methanol) on the card at the full box and
     lambda list; K1d launches counted over exactly that call. Returns
     (summary dict, launch counts)."""
+    from molchanica_tpu_torch import tracing
     from molchanica_tpu_torch.md.alchemical import HYDRATION_LAMBDAS
     from molchanica_tpu_torch.molecules.spec_json import methanol
-    from molchanica_tpu_torch.ops.colpair import ColpairDirect
     from molchanica_tpu_torch.properties import run_sol_sim_fast
 
-    ColpairDirect.launches.clear()
+    tracing.reset_counters("colpair_")
     t0 = time.perf_counter()
     props = run_sol_sim_fast(methanol(), equil_steps=n_equil,
                              prod_steps=n_prod,
@@ -1358,7 +1358,7 @@ def ti_path(n_equil, n_prod, torch, np):
                              device="cuda")
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    counts = dict(ColpairDirect.launches)
+    counts = tracing.counters("colpair_")
     rm = props.run_metrics
     n_eval = rm["force_evals"]
     n_samples = -(-n_prod // TI_DHDL_INTERVAL)
@@ -1409,7 +1409,7 @@ def range_path(build0, n_warm, n_steps, torch, np, tag="range"):
     step(0.002, n_warm), a timed step(0.002, n_steps) and
     potential_energy(), launches counted over exactly those calls.
     Returns (kernel entries, summary)."""
-    from molchanica_tpu_torch.ops.colpair import ColpairDirect
+    from molchanica_tpu_torch import tracing
 
     t0 = time.perf_counter()
     sim = build0()
@@ -1425,7 +1425,7 @@ def range_path(build0, n_warm, n_steps, torch, np, tag="range"):
                             for _, _, wl, _ in inst):
         raise SystemExit("FastSim(per_slice_k=0) did not build range tables")
     entries = kernel_parity(sim, torch)
-    ColpairDirect.launches.clear()
+    tracing.reset_counters("colpair_")
     evals0 = sim.force_evals
     t0 = time.perf_counter()
     sim.step(0.002, n_warm)
@@ -1435,7 +1435,7 @@ def range_path(build0, n_warm, n_steps, torch, np, tag="range"):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t1
     e_pot = sim.potential_energy()
-    counts = dict(ColpairDirect.launches)
+    counts = tracing.counters("colpair_")
     n_eval = sim.force_evals - evals0
     t_final = sim.temperature()
     finite = bool(np.isfinite(sim.positions_unsorted()).all())
@@ -1470,7 +1470,8 @@ def shard_rank(rank, n_dev, device, plan, halo, rows, wl, nw, box, n_calls):
     import torch
     import torch.distributed as dist
 
-    from molchanica_tpu_torch.ops.colpair import (ColpairDirect, colpair_cuda,
+    from molchanica_tpu_torch import tracing
+    from molchanica_tpu_torch.ops.colpair import (colpair_cuda,
                                                   colpair_parity,
                                                   colpair_plain,
                                                   colpair_work)
@@ -1536,10 +1537,10 @@ def shard_rank(rank, n_dev, device, plan, halo, rows, wl, nw, box, n_calls):
         e_cluster = sh.comm.all_gather(e.sum(1))
         # the main path: n_calls sharded calls, this rank's launches
         dist.barrier()
-        ColpairDirect.launches.clear()
+        tracing.reset_counters("colpair_")
         call_ms, (f, e_lj, e_c) = host_ms(
             lambda: sh(rows_b, wl_b, nw_b, box, couple))
-        launches = ColpairDirect.launches.get(kern.name, 0)
+        launches = tracing.counters("colpair_").get(kern.name, 0)
         dist.barrier()
         in_ms, _ = host_ms(lambda: sh.local_inputs(rows_b, wl_b))
         red_ms, _ = host_ms(lambda: sh.reduce(f_i, f_j, e.sum(0)))
@@ -1920,7 +1921,7 @@ def sym_path(build_sym, build_split, n_warm, n_steps, torch, np):
     split engine on one state, then the main path: a timed
     run(0.002, n_steps, n_steps // 2) with its two snapshots, launches
     counted over exactly that call. Returns (kernel entries, summary)."""
-    from molchanica_tpu_torch.ops.colpair import ColpairDirect
+    from molchanica_tpu_torch import tracing
 
     t0 = time.perf_counter()
     sim = build_sym(None)
@@ -1943,13 +1944,13 @@ def sym_path(build_sym, build_split, n_warm, n_steps, torch, np):
     entries = kernel_parity(sim, torch)
     sym_vs_tri(sim, entries, torch)
     sym_engine_parity(lambda: build_sym(sim._psk), build_split, torch)
-    ColpairDirect.launches.clear()
+    tracing.reset_counters("colpair_")
     evals0 = sim.force_evals
     t0 = time.perf_counter()
     snaps = sim.run(0.002, n_steps, max(n_steps // 2, 1))
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    counts = dict(ColpairDirect.launches)
+    counts = tracing.counters("colpair_")
     n_eval = sim.force_evals - evals0
     t_final = sim.temperature()
     finite = bool(np.isfinite(sim.positions_unsorted()).all())
@@ -1981,7 +1982,7 @@ def sym_alch_path(build_hs, n_steps, torch, np):
     couple 0.5: its two has_alch symmetric instances against their plain
     versions on the master table, then step(0.002, n_steps) and one dhdl,
     launches counted over exactly those calls. Returns the entries."""
-    from molchanica_tpu_torch.ops.colpair import ColpairDirect
+    from molchanica_tpu_torch import tracing
 
     t0 = time.perf_counter()
     sim = build_hs()
@@ -1994,12 +1995,12 @@ def sym_alch_path(build_hs, n_steps, torch, np):
     entries = kernel_parity(sim, torch)
     if any("_alch_sym_" not in e["name"] for e in entries):
         raise SystemExit("hydration symmetric engine: no has_alch instances")
-    ColpairDirect.launches.clear()
+    tracing.reset_counters("colpair_")
     evals0 = sim.force_evals
     sim.step(0.002, n_steps)
     d = sim.dhdl()
     torch.cuda.synchronize()
-    counts = dict(ColpairDirect.launches)
+    counts = tracing.counters("colpair_")
     n_eval = sim.force_evals - evals0
     t = sim.temperature()
     say(f"[sym-alch] {n_steps} steps and one dhdl at lambda "
@@ -2026,6 +2027,7 @@ def cross_phase(sim, n_calls, torch, np):
     n_calls driven calls with the launches counted. Returns the entries."""
     import dataclasses
 
+    from molchanica_tpu_torch import tracing
     from molchanica_tpu_torch.ops.colpair import (ICL, ColpairDirect,
                                                   colpair_plain,
                                                   make_sort_fn,
@@ -2103,11 +2105,11 @@ def cross_phase(sim, n_calls, torch, np):
             f"{e_ref:.4f} rel {rel_e:.3e}")
         if not (err < SYM_TOL_F_MAX and (not we or rel_e < KERNEL_TOL_E_TOT)):
             raise SystemExit(f"{kern.name}: cross and triangular disagree")
-        ColpairDirect.launches.clear()
+        tracing.reset_counters("colpair_")
         for _ in range(n_calls):
             kern(rows_s, pT, wl, nw, st.box, None)
         torch.cuda.synchronize()
-        entry.update(launches=ColpairDirect.launches.get(kern.name, 0),
+        entry.update(launches=tracing.counters("colpair_").get(kern.name, 0),
                      assembled_rel_err=err)
         if entry["launches"] != n_calls:
             raise SystemExit(f"{kern.name}: {entry['launches']} launches in "
@@ -2138,6 +2140,7 @@ def probe_phase(torch, np, dev="cuda"):
     the main path: the module's main() on the card, launches counted over
     exactly that call. Returns the JSON entry (script shapes; the large
     shape's numbers under *_big)."""
+    from molchanica_tpu_torch import tracing
     from molchanica_tpu_torch.ops import probe_prefetch as P
 
     entry = dict(name="probe_prefetch", route="cuda",
@@ -2176,11 +2179,12 @@ def probe_phase(torch, np, dev="cuda"):
                       f"bound_by{sfx}": ("operations" if t_ops >= t_bytes
                                          else "bytes"),
                       f"S{sfx}": S, f"pairs{sfx}": pairs})
-    P.launches = 0
+    tracing.reset_counters("probe_prefetch")
     rc = P.main([])
-    entry["launches"] = P.launches
-    if rc != 0 or P.launches != 1:
-        raise SystemExit(f"probe main(): exit {rc}, {P.launches} launches")
+    launches = tracing.counters().get("probe_prefetch", 0)
+    entry["launches"] = launches
+    if rc != 0 or launches != 1:
+        raise SystemExit(f"probe main(): exit {rc}, {launches} launches")
     return entry
 
 
@@ -2191,7 +2195,7 @@ def npt_path(build_npt, n_steps, torch, np):
     rigid, and colpair launches equal 2 x the force evaluations (two per
     barostat period and one per snapshot among them). Returns the
     summary."""
-    from molchanica_tpu_torch.ops.colpair import ColpairDirect
+    from molchanica_tpu_torch import tracing
 
     t0 = time.perf_counter()
     sim = build_npt()
@@ -2201,13 +2205,13 @@ def npt_path(build_npt, n_steps, torch, np):
         f"{sim.cfg.barostat_cfg.pressure_target:g}, tau="
         f"{sim.cfg.barostat_cfg.tau:g}) init {time.perf_counter() - t0:.1f} "
         f"s: box {box0:.4f} A")
-    ColpairDirect.launches.clear()
+    tracing.reset_counters("colpair_")
     evals0 = sim.force_evals
     t0 = time.perf_counter()
     snaps = sim.run(0.002, n_steps, max(n_steps // 2, 1))
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    counts = dict(ColpairDirect.launches)
+    counts = tracing.counters("colpair_")
     n_eval = sim.force_evals - evals0
     for step, p, bx in sim.pressure_log:
         say(f"[npt] step {step}: P={p:.2f} bar, box {bx:.6f} A")
@@ -2899,11 +2903,11 @@ def farm_k2_phase(asys, d, torch, np):
     replica's pair count against the plain count. Then each replica finite
     at 100 K < T < 600 K, and a profiler window of FARM_PROFILE_STEPS steps
     for the kernels per farm step. Returns (kernel entry, summary)."""
+    from molchanica_tpu_torch import tracing
     from molchanica_tpu_torch.md.config import (HydrogenConstraint,
                                                 Integrator, MdConfig)
     from molchanica_tpu_torch.md.engine import MdSim
-    from molchanica_tpu_torch.ops.direct_force import (DirectForce,
-                                                       cell_energies,
+    from molchanica_tpu_torch.ops.direct_force import (cell_energies,
                                                        direct_force_cuda,
                                                        direct_force_parity,
                                                        direct_force_plain)
@@ -2929,7 +2933,7 @@ def farm_k2_phase(asys, d, torch, np):
     farm = ReplicaFarm(md, N_FARM, seed=3)
     R = farm.n
     torch.cuda.reset_peak_memory_stats()
-    DirectForce.launches = 0
+    tracing.reset_counters("direct_force")
     evals0 = farm.force_evals
     t0 = time.perf_counter()
     farm.step(0.002, N_FARM_WARM)
@@ -3004,7 +3008,7 @@ def farm_k2_phase(asys, d, torch, np):
     farm.step(0.002, N_FARM_STEPS)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = DirectForce.launches
+    launches = tracing.counters().get("direct_force", 0)
     n_eval = farm.force_evals - evals0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ms_farm = elapsed / N_FARM_STEPS * 1e3
@@ -3926,12 +3930,12 @@ def checkpoint_trajectory_phase(md, sim_n, mol, torch, np):
     SnapshotViewer.load_trajectory and frame_at_time on the DCD."""
     import tempfile
 
+    from molchanica_tpu_torch import tracing
     from molchanica_tpu_torch.io.gro import read_gro_trajectory
     from molchanica_tpu_torch.md.checkpoint import (load_checkpoint,
                                                     save_checkpoint)
     from molchanica_tpu_torch.md.dynamics import launch_md
     from molchanica_tpu_torch.md.trajectory import FrameSlice, Trajectory
-    from molchanica_tpu_torch.ops.direct_force import DirectForce
     from molchanica_tpu_torch.md.viewer import SnapshotViewer
 
     def host_state():
@@ -3977,17 +3981,19 @@ def checkpoint_trajectory_phase(md, sim_n, mol, torch, np):
                    ckpt_bitwise=bitwise)
 
         # launch_md: the same sim stepped from a background thread
-        n0, k0, s0 = md.step_count, DirectForce.launches, len(md.snapshots)
+        n0, s0 = md.step_count, len(md.snapshots)
+        k0 = tracing.counters().get("direct_force", 0)
         t0 = time.perf_counter()
         handle = launch_md(md, 0.002, N_CKPT_STEPS, N_CKPT_STEPS // 2)
         handle.join(timeout=300)
         torch.cuda.synchronize()
+        k1 = tracing.counters().get("direct_force", 0)
         say(f"[P] launch_md({N_CKPT_STEPS} steps) joined in "
             f"{time.perf_counter() - t0:.2f} s: running {handle.running}, "
             f"steps {md.step_count - n0}, snapshots {len(md.snapshots) - s0}"
-            f", K2 launches in the thread {DirectForce.launches - k0}")
+            f", K2 launches in the thread {k1 - k0}")
         if handle.running or md.step_count != n0 + N_CKPT_STEPS \
-                or len(md.snapshots) != s0 + 2 or DirectForce.launches == k0:
+                or len(md.snapshots) != s0 + 2 or k1 == k0:
             raise SystemExit("launch_md on the card")
 
         snaps = sim_n.snapshots
@@ -5280,9 +5286,8 @@ def cli_phase(asys, x3, t3, asys_h, cfg_h, x_h, torch, np):
     import re
     import tempfile
 
-    from molchanica_tpu_torch import cli, mol_db, render
+    from molchanica_tpu_torch import cli, mol_db, render, tracing
     from molchanica_tpu_torch.md.fast_engine import FastSim
-    from molchanica_tpu_torch.ops.colpair import ColpairDirect
 
     out = {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
@@ -5330,14 +5335,14 @@ def cli_phase(asys, x3, t3, asys_h, cfg_h, x_h, torch, np):
         if sim._vsites_rolled or not sim._has_vsites:
             raise SystemExit("phase Y: the jittered layout took the rolled "
                              "vsite path")
-        ColpairDirect.launches.clear()
+        tracing.reset_counters("colpair_")
         evals0 = sim.force_evals
         t1 = time.perf_counter()
         sim.step(0.002, N_VSITE_STEPS)
         torch.cuda.synchronize()
         ms_step = (time.perf_counter() - t1) / N_VSITE_STEPS * 1e3
         n_eval = sim.force_evals - evals0
-        launches = dict(ColpairDirect.launches)
+        launches = tracing.counters("colpair_")
         t_v = sim.temperature()
         x = sim.positions_unsorted().astype(np.float64)
         vmask = top_j.vsite_mask.numpy() > 0
@@ -5707,8 +5712,8 @@ def main():
     mark("2")
 
     # ---- 3. the system ----
+    from molchanica_tpu_torch import tracing
     from molchanica_tpu_torch.md.fast_engine import FastSim
-    from molchanica_tpu_torch.ops.colpair import ColpairDirect
     from molchanica_tpu_torch.systems.bench_systems import \
         build_solvated_protein
 
@@ -5742,7 +5747,7 @@ def main():
     mark("4")
 
     # ---- 5. the main path ----
-    ColpairDirect.launches.clear()
+    tracing.reset_counters("colpair_")
     evals0 = sim.force_evals
     dt = 0.002
     t0 = time.perf_counter()
@@ -5756,7 +5761,7 @@ def main():
     elapsed = time.perf_counter() - t0
     e_pot = sim.potential_energy()
     torch.cuda.synchronize()
-    counts = dict(ColpairDirect.launches)
+    counts = tracing.counters("colpair_")
     ms_step = elapsed / args.steps * 1e3
     ns_day = args.steps * dt / 1000.0 / elapsed * 86400.0
     t_final = sim.temperature()

@@ -68,16 +68,17 @@ def run_in_chunks(sim, dt_ps, n_steps, chunk, record, trace_name):
     """The blocking run loop of MdSim and FastSim: sim.step(dt_ps, k) in
     calls of at most `chunk` steps, record(done) after each with the steps
     done so far. With sim.cfg.trace_dir set, the whole run is traced by
-    torch.profiler and its Chrome trace written there as
-    <trace_name>_<step count>.json."""
-    prof = contextlib.nullcontext()
+    torch.profiler, inside a range `md.run`, and its Chrome trace written
+    there as <trace_name>_<step count>.json."""
+    prof = phases = contextlib.nullcontext()
     if sim.cfg.trace_dir:
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity, profile, record_function
         acts = [ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if sim.device.type == "cuda" else [])
         prof = profile(activities=acts)
+        phases = record_function("md.run")
     done = 0
-    with prof:
+    with prof, phases:
         while done < n_steps:
             todo = min(chunk, n_steps - done)
             sim.step(dt_ps, todo)

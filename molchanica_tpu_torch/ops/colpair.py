@@ -37,6 +37,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import tracing
+
 # Atoms per i-cluster.
 ICL = 64
 ZBITS = 14        # z quantization bits in the sort key
@@ -997,8 +999,8 @@ class ColpairDirect:
     only, without has_alch.
 
     CUDA tensors launch the hand-written kernel (csrc/colpair.cu); CPU
-    tensors take `colpair_plain`. `launches[name]` counts the kernel's
-    launches per variant name (e.g. "colpair_coul_wf_force",
+    tensors take `colpair_plain`. The tracing counter named after the
+    instance counts the kernel's launches (e.g. "colpair_coul_wf_force",
     "colpair_full_alch_force", "colpair_coul_wf_range_force",
     "colpair_full_range_shard_energy", "colpair_full_sym_force",
     "colpair_full_cross_energy"), across all instances. K-poly Coulomb is
@@ -1008,7 +1010,6 @@ class ColpairDirect:
     'full' or 'coul' (an alchemical solute sits in the L subset, which is
     then 'full').
     """
-    launches: dict = {}
 
     def __init__(self, plan: ColPlan, want_energy: bool, mode: str = "full",
                  water_filter=None, has_alch: bool = False,
@@ -1105,8 +1106,7 @@ class ColpairDirect:
                                  i_base=i_base)
         out = colpair_cuda(self.cfg, rows, pT, wl, nw, box,
                            self.params(rows.device), couple, i_base=i_base)
-        ColpairDirect.launches[self.name] = \
-            ColpairDirect.launches.get(self.name, 0) + 1
+        tracing.count(self.name)
         e = out[-1]
         return (*out[:-1], e[:, 0].sum(), e[:, 1].sum())
 

@@ -30,6 +30,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..constants import COULOMB_CONST
 from .colpair import _sorted_keys
 
@@ -488,8 +489,9 @@ class DirectForce:
     read a zero row) and the ghost array [8, G] (property-major, shifted by
     whole boxes), then runs the hand-written CUDA kernel
     (csrc/direct_force.cu) for CUDA tensors or `direct_force_plain` for
-    CPU tensors. `DirectForce.launches` counts the kernel's launches across
-    instances. Overflow is detected at rebuild; the returned one is 0.
+    CPU tensors. The tracing counter "direct_force" counts the kernel's
+    launches across instances. Overflow is detected at rebuild; the
+    returned one is 0.
 
     Every argument but box and beta may carry a leading replica axis (x
     [R, N, 3], couple [R], slot_atom [R, n_cells C], inv_slot and shift
@@ -497,7 +499,6 @@ class DirectForce:
     (the kernel's grid z axis), F is [R, N, 3] and the energies [R]. A
     launch counts once, whatever R.
     """
-    launches = 0
 
     def __init__(self, top, plan: WindowPlan):
         self.plan = plan
@@ -542,7 +543,7 @@ class DirectForce:
             return direct_force_plain(center, ghost, self.starts, couple,
                                       beta, self.rc2)
         out = direct_force_cuda(self.plan, center, ghost, couple, beta)
-        DirectForce.launches += 1
+        tracing.count("direct_force")
         return out
 
     def __call__(self, x, box, couple, beta, slot_atom, inv_slot,

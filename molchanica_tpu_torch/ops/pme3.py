@@ -22,6 +22,7 @@ import math
 import numpy as np
 import torch
 
+from .. import tracing
 from ..constants import COULOMB_CONST
 from ..device import resolve_device
 from .pme import good_fft_size
@@ -266,10 +267,11 @@ class _Pme3BatchFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, e_bar):
         from torch.func import vmap
-        x, q, box, DR, DI = ctx.saved_tensors
-        gx, gq = vmap(ctx.pme.grads, in_dims=(0, 0, None, 0, 0))(
-            x, q, box, DR, DI)
-        return e_bar[:, None, None] * gx, e_bar[:, None] * gq, None, None
+        with tracing.span("pme.backward"):
+            x, q, box, DR, DI = ctx.saved_tensors
+            gx, gq = vmap(ctx.pme.grads, in_dims=(0, 0, None, 0, 0))(
+                x, q, box, DR, DI)
+            return e_bar[:, None, None] * gx, e_bar[:, None] * gq, None, None
 
 
 def make_pme3_recip_fn(grid_shape, beta, device=None, dtype=torch.float32):

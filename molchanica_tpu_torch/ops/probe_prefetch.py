@@ -26,10 +26,10 @@ import time
 import numpy as np
 import torch
 
+from .. import tracing
+
 ICL = 64
 LANES = 128
-# kernel launches of `probe` (the entry point); probe_cuda counts none
-launches = 0
 
 
 def probe_plain(nw, sl, rows, pT):
@@ -87,13 +87,12 @@ def probe_cuda(nw, sl, rows, pT):
 
 
 def probe(nw, sl, rows, pT):
-    """(o, o2): the kernel for CUDA tensors (counted in `launches`), the
-    plain version for CPU tensors."""
-    global launches
+    """(o, o2): the kernel for CUDA tensors (its launches counted in the
+    tracing counter "probe_prefetch"), the plain version for CPU tensors."""
     if rows.device.type == "cpu":
         return probe_plain(nw, sl, rows, pT)
     out = probe_cuda(nw, sl, rows, pT)
-    launches += 1
+    tracing.count("probe_prefetch")
     return out
 
 

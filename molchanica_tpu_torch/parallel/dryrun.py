@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..constants import COULOMB_CONST
 from ..device import resolve_device
 from ..ops.colpair import (ColpairDirect, make_sort_fn, make_window_fn,
@@ -121,7 +122,7 @@ def _dryrun_rank(rank, n_dev, device):
     err = float((f_sh - f_ref).abs().max() / f_ref.abs().max())
     out.update(n_cp=n_cp, halo=halo, colpair_err=err,
                backend=sharded.comm.backend,
-               launches=dict(ColpairDirect.launches))
+               launches=tracing.counters("colpair_"))
     return out
 
 

@@ -27,6 +27,13 @@ reads it on the others).
 with no communication (the reference's NamedSharding over a 1-axis mesh);
 a chunk on another device than the MdSim's runs a copy of its force paths
 made there from the same plan.
+
+The phases run inside spans of molchanica_tpu_torch.tracing (no-ops while
+tracing is off): `farm.call` (a call of step), `farm.step`, `farm.draws`,
+`direct.rebuild`, `farm.force` (each force evaluation) with `direct.force`,
+`pme` (and `pme.backward` in ops/pme3.py), `rest.energy` and `rest.grad`,
+`farm.integrate`, `constraints` and `farm.overflow_read` (the host's
+synchronize); benchmark/spans.py reads them.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from .. import tracing
 from ..constants import ACCEL_FACTOR, KB
 from ..md.alchemical import LambdaWindow
 from ..md.energy import apply_virtual_sites, make_energy_fn
@@ -49,6 +57,17 @@ def _detach(terms):
     return {k: v.detach() for k, v in terms.items()}
 
 
+def _in_span(name, fn):
+    """fn, each call inside tracing.span(name); None stays None."""
+    if fn is None:
+        return None
+
+    def call(*args):
+        with tracing.span(name):
+            return fn(*args)
+    return call
+
+
 class _Batched:
     """One MdSim's force paths with a leading replica axis: rebuild(x, box)
     -> (nbr, overflow [R] or None), force(x, box, c, nbr) -> (F [R, N, 3],
@@ -58,8 +77,10 @@ class _Batched:
         self.sim = sim
         top = sim.top
         self.place = vmap(lambda x: apply_virtual_sites(x, top))
-        self.cp = None if sim._cp is None else vmap(sim._cp)
-        self.cv = None if sim._cv is None else vmap(sim._cv)
+        self.cp = _in_span("constraints",
+                           None if sim._cp is None else vmap(sim._cp))
+        self.cv = _in_span("constraints",
+                           None if sim._cv is None else vmap(sim._cv))
         self.evals = 0
         if sim.method != "cells_pme":
             self._energy = vmap(sim.energy_fn, in_dims=(0, None, 0))
@@ -145,16 +166,22 @@ class _Batched:
     # -- cells_pme: analytic direct space + autograd of the rest --
     def _force_cells(self, x, box, c, nbr):
         self.evals += 1
-        xv = self.place(x)
-        f1, e_lj, e_c, ovf = self._direct(xv, box, c, nbr, True)
-        f1 = self._spread(f1)
-        with torch.enable_grad():
-            xg = xv.detach().requires_grad_(True)
-            e_recip = self.sim._recip.batched(self.place(xg), box, c)
-            e_rest, terms = self._rest(xg, box, c, e_recip)
-            (g,) = torch.autograd.grad(e_rest.sum(), xg)
-        return f1 - g, add_direct_terms(e_rest.detach(), _detach(terms),
-                                        e_lj, e_c, ovf)
+        with tracing.span("farm.force"):
+            xv = self.place(x)
+            with tracing.span("direct.force"):
+                f1, e_lj, e_c, ovf = self._direct(xv, box, c, nbr, True)
+            f1 = self._spread(f1)
+            with torch.enable_grad():
+                xg = xv.detach().requires_grad_(True)
+                xp = self.place(xg)
+                with tracing.span("pme"):
+                    e_recip = self.sim._recip.batched(xp, box, c)
+                with tracing.span("rest.energy"):
+                    e_rest, terms = self._rest(xg, box, c, e_recip)
+                with tracing.span("rest.grad"):
+                    (g,) = torch.autograd.grad(e_rest.sum(), xg)
+            return f1 - g, add_direct_terms(e_rest.detach(), _detach(terms),
+                                            e_lj, e_c, ovf)
 
     def _energy_cells(self, x, box, c):
         """[R] total energies with a fresh rebuild, no forces (MdSim's
@@ -232,9 +259,11 @@ class _Chunk:
         """One farm step of this chunk: (E [R], dH/dlambda [R] or None,
         overflow [R] int64)."""
         b = self.b
-        self.nbr, ovf = b.rebuild(b.place(self.x), self.box)
+        with tracing.span("direct.rebuild"):
+            self.nbr, ovf = b.rebuild(b.place(self.x), self.box)
         f0 = b.force(self.x, self.box, self.c, self.nbr)[0]
-        x, v, _, e, terms = self.one_step(dt)(self.x, self.v, f0, noise)
+        with tracing.span("farm.integrate"):
+            x, v, _, e, terms = self.one_step(dt)(self.x, self.v, f0, noise)
         self.x, self.v = x, v
         ovf_step = terms["cell_overflow"].to(torch.int64)
         if ovf is not None:
@@ -346,7 +375,8 @@ class ReplicaFarm:
         return [None] * len(self._chunks)
 
     def _check(self, acc):
-        ovf = max(int(a.max()) for a in acc)
+        with tracing.span("farm.overflow_read"):
+            ovf = max(int(a.max()) for a in acc)
         if ovf > 0:
             raise RuntimeError(
                 f"ReplicaFarm neighbor overflow ({ovf}): cell/cluster "
@@ -360,29 +390,33 @@ class ReplicaFarm:
         to `dhdl_trace`. A neighbour overflow in any replica (dropped pairs
         would corrupt forces and dH/dlambda unseen) raises RuntimeError; it
         is read every 64 steps, on every recording step and at the end."""
-        dt = float(dt_ps)
-        acc = [torch.zeros(ch.hi - ch.lo, dtype=torch.int64,
-                           device=ch.sim.device) for ch in self._chunks]
-        energies = None
-        for i in range(n_steps):
-            draws = self._draws()
-            out = [ch.step(dt, d, record_dhdl)
-                   for ch, d in zip(self._chunks, draws)]
-            for k, (_, _, ovf) in enumerate(out):
-                acc[k] = torch.maximum(acc[k], ovf)
-            energies = [e for e, _, _ in out]
-            if record_dhdl:
-                d = torch.cat([dh.detach().cpu() for _, dh, _ in out])
-                for r, val in enumerate(d.tolist()):
-                    self.dhdl_trace[r].append(float(val))
-                self._check(acc)
-            elif i % 64 == 63:
-                self._check(acc)
-        self._check(acc)
-        self.step_count += n_steps
-        if energies is None:
-            return None
-        return torch.cat([e.detach().cpu() for e in energies]).numpy()
+        with tracing.span("farm.call"):
+            dt = float(dt_ps)
+            acc = [torch.zeros(ch.hi - ch.lo, dtype=torch.int64,
+                               device=ch.sim.device) for ch in self._chunks]
+            energies = None
+            for i in range(n_steps):
+                with tracing.span("farm.step"):
+                    with tracing.span("farm.draws"):
+                        draws = self._draws()
+                    out = [ch.step(dt, d, record_dhdl)
+                           for ch, d in zip(self._chunks, draws)]
+                    for k, (_, _, ovf) in enumerate(out):
+                        acc[k] = torch.maximum(acc[k], ovf)
+                    energies = [e for e, _, _ in out]
+                    if record_dhdl:
+                        d = torch.cat([dh.detach().cpu()
+                                       for _, dh, _ in out])
+                        for r, val in enumerate(d.tolist()):
+                            self.dhdl_trace[r].append(float(val))
+                        self._check(acc)
+                    elif i % 64 == 63:
+                        self._check(acc)
+            self._check(acc)
+            self.step_count += n_steps
+            if energies is None:
+                return None
+            return torch.cat([e.detach().cpu() for e in energies]).numpy()
 
     def windows(self):
         """Per-replica LambdaWindow objects from the recorded dH/dlambda

@@ -19,6 +19,8 @@ the two periods, box, positions and the rigid O-H distances within 5e-3 A
 exactly, snapshot positions within 5e-3 A and energies within 1e-4 of
 the largest energy term.
 """
+import json
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -275,9 +277,13 @@ def test_box_drift_replans_and_completes():
 
 
 def test_run_trace_dir(tmp_path):
-    """cfg.trace_dir: run() writes a torch.profiler Chrome trace there."""
+    """cfg.trace_dir: run() writes a torch.profiler Chrome trace there,
+    with the run as a range `md.run`."""
     asys, v0 = _water_box()
     sim = _port(asys, v0, barostat_cfg=None, trace_dir=str(tmp_path))
     snaps = sim.run(DT, 2, snapshot_interval=2)
     assert len(snaps) == 1 and snaps[0].time == pytest.approx(2 * DT)
     assert [p.name for p in tmp_path.iterdir()] == ["fastsim_run_2.json"]
+    with open(tmp_path / "fastsim_run_2.json") as fh:
+        names = {e.get("name") for e in json.load(fh)["traceEvents"]}
+    assert "md.run" in names

@@ -20,6 +20,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from molchanica_tpu_torch import tracing
 from molchanica_tpu_torch.ops import probe_prefetch as P
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -96,7 +97,8 @@ def test_probe_plain_matches_pallas(script, name):
     assert empty.any() == (name == "empty_clusters")
     assert float(o[torch.as_tensor(empty)].abs().sum()) == 0.0
     assert o_ref[empty].sum() == 0.0
-    assert P.launches == 0                  # CPU tensors take the plain path
+    # CPU tensors take the plain path
+    assert tracing.counters("probe_prefetch") == {}
 
 
 @pytest.mark.parametrize("name", CASES)

@@ -87,12 +87,16 @@ Phases, each printed on lines of its own:
      10) below E0, the state kept at its energy, waters rigid;
  25. B: on A's state, every pair of real sites within rc found by a
      blocked brute-force search on the card lies in the [NC, M] cluster
-     list; the cluster force on the card against the same function on
-     the CPU and against the window backend on the card; device ms of a
-     rebuild and of each backend's force evaluation;
+     list; the cluster force on the card (the kernel csrc/cluster_force.cu)
+     against its plain twin on the card (per site, and the same bits on
+     two launches), against the same function on the CPU and against the
+     window backend on the card; device ms of a rebuild and of each
+     backend's force evaluation (the kernel by CUDA graph and eager, its
+     registers and spills);
  26. C: A's MdSim, a warm-up step call and a timed run(0.002, n, n/2)
-     with two snapshots: ms/step, ns/day, T within 10% of 310 K
-     (--mdd-profile N traces N more steps);
+     with two snapshots: ms/step, ns/day, T within 10% of 310 K, one
+     "cluster_force" launch per force evaluation (--mdd-profile N traces
+     N more steps);
  27. D: NPT on the cluster path, BarostatCfg(1 bar, tau 2 ps) from C's
      state: each block's pressure by autograd, the peak memory of one
      pressure evaluation, the box moved, waters rigid;
@@ -769,6 +773,19 @@ def graph_ms(fn, n):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / n
+
+
+def ptxas_report(log, name):
+    """ptxas's lines (registers, spills) for each entry function of the
+    build log whose name holds `name`."""
+    out, keep = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            keep = name in line
+        if keep and ("registers" in line or "spill" in line
+                     or "Compiling entry" in line):
+            out.append(line.strip())
+    return out
 
 
 def engine_instances(sim, torch):
@@ -2347,6 +2364,7 @@ def cluster_phase(md, torch, np):
     max|F| plus ENGINE_TOL_DIRECT of the site's pair-term magnitudes,
     energies rel 1e-5 of |E| plus their |e| sums); device ms of a rebuild
     and of each backend's force evaluation."""
+    from molchanica_tpu_torch import cuda_build
     from molchanica_tpu_torch.md.energy import apply_virtual_sites
     from molchanica_tpu_torch.ops.cells import make_xla_direct_force_fn
     from molchanica_tpu_torch.ops.clusters import (
@@ -2392,6 +2410,27 @@ def cluster_phase(md, torch, np):
 
     with torch.no_grad():
         f_g, elj_g, ec_g, _ = md._direct(xv, box, couple, beta, order, nbr)
+        f_g2, elj_g2, ec_g2, _ = md._direct(xv, box, couple, beta, order,
+                                            nbr)
+        stats_g = {}
+        f_p, elj_p, ec_p, _ = md._direct.plain(xv, box, couple, beta, order,
+                                               nbr, stats=stats_g)
+    same = torch.equal(f_g, f_g2) and torch.equal(elj_g, elj_g2) \
+        and torch.equal(ec_g, ec_g2)
+    d_k = (f_g - f_p).abs().amax(1)
+    k_site = float((d_k / (stats_g["f_abs"] + 1e-30)).max())
+    k_e = max(abs(float(el) - float(pl)) / (abs(float(pl)) + sc)
+              for el, pl, sc in ((elj_g, elj_p, stats_g["e_abs_lj"]),
+                                 (ec_g, ec_p, stats_g["e_abs_c"])))
+    say(f"[clusters] kernel vs its plain twin on the card: per site |dF| / "
+        f"f_abs {k_site:.3e} (limit {KERNEL_TOL_F:g}), max|dF| "
+        f"{float(d_k.max()):.4e}, energies (of |E| + |e| sums) {k_e:.3e} "
+        f"(limit {KERNEL_TOL_E:g}); the same bits on two launches: {same}")
+    if not (same and bool((d_k <= KERNEL_TOL_F * stats_g["f_abs"]).all())
+            and k_e < KERNEL_TOL_E):
+        raise SystemExit("cluster force kernel and its plain twin disagree")
+
+    with torch.no_grad():
         top_c = top.to("cpu")
         direct_c = make_cluster_direct_force_fn(top_c, md.cfg, plan)
         stats = {}
@@ -2435,7 +2474,18 @@ def cluster_phase(md, torch, np):
                                             nbr), 10)
         e_win = cuda_ms(lambda: win(xv, box, couple, beta), 5)
         e_force = cuda_ms(lambda: md.force_fn(s.positions, box, couple), 10)
+        t_plain = cuda_ms(lambda: md._direct.plain(xv, box, couple, beta,
+                                                   order, nbr), 2)
     nc_w, cap_w, shifts_w = win.plan
+    regs = ptxas_report(cuda_build.build_log, "cluster_force_kernel")
+    for line in regs:
+        say(f"[clusters] {line}")
+    t_ops = n_pairs / 2 * (K2_PAIR_OPS + K2_REACTION_OPS) / PEAK_FP32 * 1e3
+    t_bytes = real.numel() * 9 * 4 / PEAK_BYTES * 1e3
+    say(f"[clusters] kernel {t_clus:.4f} ms (CUDA graph; eager "
+        f"{e_clus:.4f}), plain twin {t_plain:.2f} ms, bound "
+        f"{max(t_ops, t_bytes):.5f} ms ({n_pairs // 2} unordered pairs x "
+        f"{K2_PAIR_OPS + K2_REACTION_OPS} FP32 ops)")
     say(f"[clusters] device ms (CUDA graph; eager per call in brackets): "
         f"rebuild {t_rebuild:.4f} [{e_rebuild:.4f}], cluster force "
         f"{t_clus:.4f} [{e_clus:.4f}] over {ncl * plan.m_neighbors * 64} "
@@ -2444,29 +2494,45 @@ def cluster_phase(md, torch, np):
         f"(nc={nc_w}, C={cap_w}, {len(shifts_w)} shifts); MdSim.force_fn "
         f"(rebuild + clusters + pme_rest) eager {e_force:.4f}; "
         f"{time.perf_counter() - t0:.1f} s")
-    return dict(pairs=n_pairs, max_count=int(counts.max()),
-                m=plan.m_neighbors, rebuild_ms=t_rebuild,
-                cluster_ms=t_clus, window_ms=t_win,
-                rebuild_eager_ms=e_rebuild, cluster_eager_ms=e_clus,
-                window_eager_ms=e_win, force_fn_eager_ms=e_force, **res)
+    entry = dict(
+        name="cluster_force", route="cuda",
+        source="molchanica_tpu_torch/csrc/cluster_force.cu",
+        replaces="none (XLA in molchanica_tpu/ops/clusters.py)",
+        launches=None, max_abs_err=float(d_k.max()), ms=t_clus,
+        plain_ms=t_plain, call_ms=e_clus,
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=None, site_rel_err=k_site, e_rel_err=k_e,
+        ptxas=regs)
+    return entry, dict(pairs=n_pairs, max_count=int(counts.max()),
+                       m=plan.m_neighbors, rebuild_ms=t_rebuild,
+                       cluster_ms=t_clus, window_ms=t_win,
+                       rebuild_eager_ms=e_rebuild, cluster_eager_ms=e_clus,
+                       window_eager_ms=e_win, force_fn_eager_ms=e_force,
+                       plain_ms=t_plain, **res)
 
 
 def default_md_path(md, n_warm, n_steps, torch, np):
     """Phase C: phase A's MdSim, step(0.002, n_warm), then a timed
     run(0.002, n_steps, n_steps // 2) with its two snapshots; finite, 100 K
     < T < 600 K, and the mean of the snapshots' and the final temperature
-    within 10% of 310 K (CSVR)."""
+    within 10% of 310 K (CSVR); the timed run launches the cluster force
+    kernel once per force evaluation."""
+    from molchanica_tpu_torch import tracing
+
     dt = 0.002
     t0 = time.perf_counter()
     md.step(dt, n_warm)
     torch.cuda.synchronize()
     say(f"[mdd] warm-up {n_warm} steps in {time.perf_counter() - t0:.1f} s")
     evals0 = md.force_evals
+    k0 = tracing.counters().get("cluster_force", 0)
     t0 = time.perf_counter()
     snaps = md.run(dt, n_steps, max(n_steps // 2, 1))
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     n_eval = md.force_evals - evals0
+    launches = tracing.counters().get("cluster_force", 0) - k0
     temps = snapshot_temperatures(md, snaps, np) + [md.temperature()]
     t_mean = float(np.mean(temps))
     finite = bool(torch.isfinite(md.state.positions).all())
@@ -2474,15 +2540,20 @@ def default_md_path(md, n_warm, n_steps, torch, np):
     ns_day = n_steps * dt / 1000.0 / elapsed * 86400.0
     say(f"[mdd] run(0.002, {n_steps}, {max(n_steps // 2, 1)}): ms/step="
         f"{ms_step:.4f} ns/day={ns_day:.3f} (snapshots included) "
-        f"force_evals {n_eval}; T at the snapshots and the end "
+        f"force_evals {n_eval}, cluster_force launches {launches}; T at the "
+        f"snapshots and the end "
         f"{', '.join(f'{t:.2f}' for t in temps)} K (mean {t_mean:.2f}); "
         f"E_pot {snaps[-1].energy_data.energy_potential:.3f} kcal/mol; "
         f"finite={finite}; {len(snaps)} snapshots")
     if not finite or not all(100.0 < t < 600.0 for t in temps) \
             or abs(t_mean - 310.0) > 31.0 or len(snaps) != 2:
         raise SystemExit(f"MdSim default run: finite={finite} T={temps}")
+    if launches != n_eval or n_eval == 0:
+        raise SystemExit(f"MdSim default run: {launches} cluster_force "
+                         f"launches for {n_eval} force evaluations")
     return dict(ms_per_step=ms_step, ns_per_day=ns_day, force_evals=n_eval,
-                temperatures_K=temps, elapsed_s=elapsed, n_timed=n_steps)
+                launches=launches, temperatures_K=temps, elapsed_s=elapsed,
+                n_timed=n_steps)
 
 
 def default_npt_path(md, n_steps, torch, np):
@@ -5956,11 +6027,13 @@ def main():
     mark("A")
 
     # ---- 25. B: the cluster list and forces on A's state ----
-    clus = cluster_phase(md_d, torch, np)
+    clus_entry, clus = cluster_phase(md_d, torch, np)
+    entries.append(clus_entry)
     mark("B")
 
     # ---- 26. C: A's path ----
     mdd = default_md_path(md_d, N_MDD_WARM, N_MDD_STEPS, torch, np)
+    clus_entry["launches"] = mdd["launches"]
     if args.mdd_profile:
         if args.out:
             os.makedirs(args.out, exist_ok=True)

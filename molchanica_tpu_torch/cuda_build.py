@@ -18,7 +18,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "csrc", name)
-           for name in ("colpair.cu", "direct_force.cu", "probe_prefetch.cu")]
+           for name in ("colpair.cu", "direct_force.cu", "probe_prefetch.cu",
+                        "cluster_force.cu")]
 BUILD_DIR = os.path.join(_HERE, "_build")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # no --use_fast_math: the kernels' pair math must match the plain torch
@@ -26,12 +27,14 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_double
 # argtypes of each source's C entry point (each returns a cudaError_t)
 ENTRIES = {
     "colpair_launch": [_I] * 10 + [_P] * 13,
     "direct_force_launch": [_I] * 8 + [_F] + [_P] * 7,
     "probe_launch": [_I] * 3 + [_P] * 7,
+    "cluster_force_launch": [_I] * 7 + [ctypes.c_longlong, _D] + [_P] * 11,
 }
 
 _lib = None

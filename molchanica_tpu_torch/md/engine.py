@@ -8,7 +8,9 @@ boxes of up to 2,048 sites, "cells_pme" above. The direct space of
             direct_force.cu) when cfg.use_pallas; float32 only, and a box
             too small for it raises: the port never falls back silently
   clusters  the default when the box is at least 2 rc per axis: Morton-
-            sorted cluster-pair lists (ops/clusters.py)
+            sorted cluster-pair lists (ops/clusters.py), the force by the
+            kernel csrc/cluster_force.cu on the card; the barostat's
+            differentiable energy by its plain twin
   window    the dense shift window (ops/cells.py), for smaller boxes or
             with cfg.direct_backend == "window"
 
@@ -343,6 +345,12 @@ class MdSim:
                 return clus(x, box, couple, beta, *nbr,
                             want_force=want_force)
 
+            def energy_direct(x, box, couple, nbr):
+                # the kernel gives no gradient: the barostat's dE/ds and
+                # autograd in couple take the plain twin by name
+                return clus.plain(x, box, couple, beta, *nbr,
+                                  want_force=False)
+
             self._rebuild = rebuild
         else:
             win = make_xla_direct_force_fn(top, cfg, box_np, x0=x0_np)
@@ -356,14 +364,16 @@ class MdSim:
             def direct_nbr(x, box, couple, nbr, want_force=True):
                 return win(x, box, couple, beta, want_force=want_force)
 
+            def energy_direct(x, box, couple, nbr):
+                return direct_nbr(x, box, couple, nbr, want_force=False)
+
             self._rebuild = None
         self._plan = plan
 
         if self._nbr_backend != "pallas":
             def energy_nbr(x, box, couple, nbr):
                 x = apply_virtual_sites(x, top)
-                _, e_lj, e_c, _ = direct_nbr(x, box, couple, nbr,
-                                             want_force=False)
+                _, e_lj, e_c, _ = energy_direct(x, box, couple, nbr)
                 return rest_e(x, box, couple)[0] + e_lj + e_c
 
         vs = top.vsite_idx
@@ -679,8 +689,8 @@ class MdSim:
             a = (stats["f_abs"][inv] * top.atom_mask)[:, None]
         elif self._nbr_backend == "clusters":
             order, nbr, _ = self._rebuild(xv, s.box)
-            self._direct(xv, s.box, s.couple, self._beta, order, nbr,
-                         want_force=False, stats=stats)
+            self._direct.plain(xv, s.box, s.couple, self._beta, order, nbr,
+                               want_force=False, stats=stats)
             a = stats["f_abs"][:, None]
         else:
             raise ValueError(f"no direct-space scales for backend "

@@ -9,23 +9,32 @@ evaluation gathers each cluster's M neighbour clusters and runs dense
 The per-pair arithmetic is the cell-grid kernel's (A&S erfc, softcore LJ,
 the LJ clip), so the exclusion subtraction of pme_rest cancels.
 
-Plain torch on tensors that follow the inputs' dtype. Both loops stay
-blocked as in the reference: the refinement in [blk, blk, 8, 8, 3] tiles
-of ~160 clusters, the force in 16 blocks of [NC / 16, M, 8, 8] pair
-slots; at config 3 (NC = 3,136, M = 288) one force block is 3.6 M slots
-and its temporaries a few hundred MB. Sorts are stable (argsort(stable=
-True)), so `order` and the list equal the reference's where the Morton
-codes tie.
+The force runs as the hand-written CUDA kernel csrc/cluster_force.cu for
+CUDA tensors (`cluster_force_cuda`, one launch for every replica) and as
+its plain torch twin (`make_cluster_direct_plain`) for CPU tensors; the
+twin is also the differentiable energy and the `stats` that callers take
+by name. Plain torch elsewhere, on tensors that follow the inputs' dtype.
+Both plain loops stay blocked as in the reference: the refinement in
+[blk, blk, 8, 8, 3] tiles of ~160 clusters, the force in 16 blocks of
+[NC / 16, M, 8, 8] pair slots; at config 3 (NC = 3,136, M = 288) one
+force block is 3.6 M slots and its temporaries a few hundred MB. Sorts are
+stable (argsort(stable=True)), so `order` and the list equal the
+reference's where the Morton codes tie, and each row of the list holds
+its listed clusters before its -1 padding, which the kernel's early stop
+relies on.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
 import torch
+from torch.func import vmap
 
+from .. import tracing
 from ..constants import COULOMB_CONST
 from .direct_force import LJ_CLIP, SOFTCORE_ALPHA, erfc_approx
 from .pbc import minimum_image
@@ -211,9 +220,10 @@ def _pair_math(d, r2, pi, pj, ok, couple, beta, mags):
             mag)
 
 
-def make_cluster_direct_force_fn(top, cfg, plan: ClusterPlan):
-    """direct(x, box, couple, beta, order, nbr, want_force=True,
-    stats=None) -> (F [N, 3] or None, e_lj, e_c, 0).
+def make_cluster_direct_plain(top, cfg, plan: ClusterPlan):
+    """The plain torch twin of the cluster force kernel: plain(x, box,
+    couple, beta, order, nbr, want_force=True, stats=None) -> (F [N, 3] or
+    None, e_lj, e_c, 0).
 
     Every pair appears from both of its clusters (and the self-cluster
     tile holds each of its pairs twice), so the energies are half sums;
@@ -223,7 +233,41 @@ def make_cluster_direct_force_fn(top, cfg, plan: ClusterPlan):
     2 r (|LJ term| + |Coulomb term|) of dV/dr2, and "e_abs_lj" /
     "e_abs_c", the half sums of |e_lj| and |e_c|: the float32 scales of
     the output (the excluded pairs that pme_rest subtracts again are in
-    them)."""
+    them).
+
+    x may carry a leading replica axis ([R, N, 3], with order [R, N], nbr
+    [R, NC, M] and couple [R] or a scalar): the replicas then run under
+    torch.func.vmap, F is [R, N, 3] and the energies [R]; stats take one
+    replica."""
+    one = _plain_one(top, plan)
+    batched = {w: vmap(functools.partial(_drop_force, one, w),
+                       in_dims=(0, None, 0, None, 0, 0))
+               for w in (False, True)}
+
+    def plain(x, box, couple, beta, order, nbr, want_force=True,
+              stats=None):
+        if x.dim() == 2:
+            return one(x, box, couple, beta, order, nbr, want_force, stats)
+        if stats is not None:
+            raise ValueError("cluster_direct_plain: stats take one replica")
+        couple = torch.as_tensor(couple, dtype=x.dtype,
+                                 device=x.device).expand(x.shape[0])
+        out = batched[want_force](x, box, couple, beta, order, nbr)
+        return (out if want_force else (None,) + out) + (
+            torch.zeros(x.shape[:1], dtype=torch.int64, device=x.device),)
+
+    return plain
+
+
+def _drop_force(one, want_force, x, box, couple, beta, order, nbr):
+    """one replica's (F, e_lj, e_c), or (e_lj, e_c): vmap returns no
+    None."""
+    f, e_lj, e_c, _ = one(x, box, couple, beta, order, nbr, want_force,
+                          None)
+    return (f, e_lj, e_c) if want_force else (e_lj, e_c)
+
+
+def _plain_one(top, plan: ClusterPlan):
     n = plan.n_atoms
     ncl = plan.n_clusters
     m_max = plan.m_neighbors
@@ -232,15 +276,11 @@ def make_cluster_direct_force_fn(top, cfg, plan: ClusterPlan):
     blk = -(-ncl // n_blk)
     pad_c = blk * n_blk - ncl
 
-    def direct(x, box, couple, beta, order, nbr, want_force=True,
-               stats=None):
+    def one(x, box, couple, beta, order, nbr, want_force, stats):
         dev, dt = x.device, x.dtype
         xs = x[order]
         xs = xs - box * torch.floor(xs / box)
-        props = torch.stack([(top.charges * top.atom_mask)[order],
-                             top.lj_sigma[order], top.lj_eps[order],
-                             top.couple_mask[order], top.atom_mask[order]],
-                            dim=1).to(dt)
+        props = direct_rows(top)[order].to(dt)
         xc = xs.reshape(ncl, CL, 3)
         pc = props.reshape(ncl, CL, 5)
         xc_p = torch.cat([xc, torch.zeros((pad_c, CL, 3), dtype=dt,
@@ -294,4 +334,121 @@ def make_cluster_direct_force_fn(top, cfg, plan: ClusterPlan):
         return (f_atoms, 0.5 * e_lj, 0.5 * e_c,
                 torch.zeros((), dtype=torch.int64, device=dev))
 
+    return one
+
+
+def direct_rows(top):
+    """[N, 5] per-atom rows of the kernel: q * atom_mask, sigma, eps,
+    couple mask, atom mask."""
+    return torch.stack([top.charges * top.atom_mask, top.lj_sigma,
+                        top.lj_eps, top.couple_mask, top.atom_mask],
+                       dim=1).contiguous()
+
+
+def make_cluster_direct_force_fn(top, cfg, plan: ClusterPlan):
+    """direct(x, box, couple, beta, order, nbr, want_force=True,
+    stats=None) -> (F [N, 3] or None, e_lj, e_c, 0): MdSim's cluster force.
+
+    CUDA tensors launch the hand-written kernel (csrc/cluster_force.cu,
+    `cluster_force_cuda`), one launch whatever the replica axis; CPU
+    tensors take the plain twin, `direct.plain` (make_cluster_direct_plain),
+    which callers that need a differentiable energy or `stats` call by
+    name on either device. Both take a leading replica axis on x, order,
+    nbr and couple (F [R, N, 3], energies [R])."""
+    plain = make_cluster_direct_plain(top, cfg, plan)
+    rc2 = float(plan.cutoff) ** 2
+    rows = direct_rows(top)
+    zero = torch.zeros((), dtype=torch.int64, device=rows.device)
+
+    def direct(x, box, couple, beta, order, nbr, want_force=True,
+               stats=None):
+        if x.device.type != "cuda":
+            return plain(x, box, couple, beta, order, nbr, want_force,
+                         stats)
+        if stats is not None:
+            raise ValueError("cluster force: stats come from the plain "
+                             "twin (direct.plain)")
+        f, e = cluster_force_cuda(plan, x, box, couple, beta, order, nbr,
+                                  rows.to(x.device, x.dtype), rc2,
+                                  want_force)
+        return f, e[..., 0], e[..., 1], zero
+
+    direct.plain = plain
     return direct
+
+
+def cluster_force_cuda(plan: ClusterPlan, x, box, couple, beta, order, nbr,
+                       rows, rc2, want_force=True):
+    """Launch csrc/cluster_force.cu on the current stream: (F [N, 3] or
+    None, e [2] = the half sums (e_lj, e_c)), in x's dtype (float32 or
+    float64). With a leading replica axis (x [R, N, 3], order [R, N], nbr
+    [R, NC, M], couple [R] or a scalar) one launch runs the R replicas and
+    returns [R, N, 3] and [R, 2]; x's replicas may lie any stride apart
+    (its rows contiguous). rows is `direct_rows(top)` in x's dtype;
+    nbr's rows must be compacted (the rebuild's are). With couple, beta and
+    box on the card the launch copies nothing from the host, so it can be
+    captured in a CUDA graph; a Python float is copied at every call. The
+    tracing counter "cluster_force" counts each launch. The kernel gives no
+    gradient: an input that requires one under autograd raises."""
+    import ctypes
+
+    from ..cuda_build import load_library
+
+    dev, dt = x.device, x.dtype
+    n, ncl, m = plan.n_atoms, plan.n_clusters, plan.m_neighbors
+    lead = tuple(x.shape[:-2])
+    R = x.shape[0] if lead else 1
+    couple, beta, box = (torch.as_tensor(v, dtype=dt, device=dev)
+                         for v in (couple, beta, box))
+    if len(lead) > 1 or x.shape != lead + (n, 3) \
+            or order.shape != lead + (n,) or nbr.shape != lead + (ncl, m) \
+            or rows.shape != (n, 5) or not 0 < R < 65536 \
+            or couple.shape not in ((), (R,)) or beta.shape != () \
+            or box.shape != (3,):
+        raise ValueError(
+            f"cluster_force: shapes x {tuple(x.shape)}, order "
+            f"{tuple(order.shape)}, nbr {tuple(nbr.shape)}, rows "
+            f"{tuple(rows.shape)}, couple {tuple(couple.shape)}, beta "
+            f"{tuple(beta.shape)}, box {tuple(box.shape)}: want [R,] [{n}, "
+            f"3], [R,] [{n}], [R,] [{ncl}, {m}], [{n}, 5], [R] or a "
+            f"scalar, a scalar, [3]; R < 65,536")
+    tensors = (("x", x, dt), ("rows", rows, dt), ("order", order,
+               torch.int64), ("nbr", nbr, torch.int64))
+    if dt not in (torch.float32, torch.float64) \
+            or any(t.dtype != want for _, t, want in tensors):
+        raise ValueError(f"cluster_force: dtypes x {dt}, rows {rows.dtype},"
+                         f" order {order.dtype}, nbr {nbr.dtype}: want "
+                         f"float32 or float64, the same, int64, int64")
+    tensors += (("couple", couple, dt), ("beta", beta, dt),
+                ("box", box, dt))
+    # x's replicas may lie apart (vmap's outputs pad them), its rows not
+    if x.stride()[-2:] != (3, 1) or not all(
+            t.is_contiguous() for _, t, _ in tensors[1:]):
+        raise ValueError("cluster_force: x's rows and every other tensor "
+                         "must be contiguous")
+    if dev.type != "cuda" \
+            or any(t.device != dev for _, t, _ in tensors):
+        raise ValueError(f"cluster_force: every tensor must lie on one "
+                         f"CUDA device, x lies on {dev}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, box, couple, beta, rows)):
+        raise ValueError("cluster_force: the kernel gives no gradient; "
+                         "call the plain twin for a differentiable energy")
+    lib = load_library()
+    f = torch.empty(lead + (n, 3), dtype=dt, device=dev) \
+        if want_force else None
+    e_part = torch.empty((R * ncl * 2,), dtype=torch.float64, device=dev)
+    e = torch.empty(lead + (2,), dtype=dt, device=dev)
+    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
+    err = lib.cluster_force_launch(
+        int(dt == torch.float64), int(want_force), R, n, ncl, m,
+        int(couple.dim() == 1), x.stride(0) if lead else 3 * n,
+        ctypes.c_double(rc2), ptr(x), ptr(order),
+        ptr(nbr), ptr(rows), ptr(couple), ptr(beta), ptr(box), ptr(f),
+        ptr(e_part), ptr(e),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"cluster_force kernel launch failed: CUDA error "
+                           f"{err}")
+    tracing.count("cluster_force")
+    return f, e

@@ -10,8 +10,9 @@ times as many. The pure per-replica functions are batched by
 torch.func.vmap; what vmap cannot take is batched by hand: forces and
 dH/dlambda by torch.autograd over the summed [R] energies (autograd does
 not run inside vmap), PME by `Pme3.batched`, and the cell-grid kernel K2
-by one launch with a replica axis in its grid (ops/direct_force.py,
-csrc/direct_force.cu).
+and the cluster force kernel by one launch with a replica axis in its
+grid (ops/direct_force.py, csrc/direct_force.cu; ops/clusters.py,
+csrc/cluster_force.cu).
 
 One farm step per replica, as the reference's `replica_step`:
   on the cluster and K2 backends: the M sites placed and the neighbour
@@ -106,18 +107,11 @@ class _Batched:
                 order, nbr, ovf = rebuild1(xv, box)
                 return (order, nbr), ovf
 
-            def one(want_force, x, box, c, order, nbr):
-                f, e_lj, e_c, _ = sim._direct(x, box, c, beta, order, nbr,
-                                              want_force=want_force)
-                return (f, e_lj, e_c) if want_force else (e_lj, e_c)
-
-            batched = {w: vmap(functools.partial(one, w),
-                               in_dims=(0, None, 0, 0, 0))
-                       for w in (False, True)}
-
             def direct(xv, box, c, nbr, want_force):
-                out = tuple(batched[want_force](xv, box, c, *nbr))
-                return (out if want_force else (None,) + out) + (None,)
+                # the replica axis natively: one kernel launch on the card,
+                # the plain twin under vmap on the CPU
+                return sim._direct(xv, box, c, beta, *nbr,
+                                   want_force=want_force)[:3] + (None,)
         else:
             def rebuild(xv, box):
                 return (), None

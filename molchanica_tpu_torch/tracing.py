@@ -22,7 +22,7 @@ synchronizes and allocates nothing on a device.
 
 Counters (`count`, `counters`, `reset_counters`) are named integers,
 always on: the kernels' launch counts ("direct_force", "probe_prefetch",
-and one per colpair instance name, "colpair_...").
+"cluster_force", and one per colpair instance name, "colpair_...").
 """
 from __future__ import annotations
 

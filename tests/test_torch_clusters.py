@@ -22,6 +22,7 @@ from molchanica_tpu.md.config import MdConfig as JCfg
 from molchanica_tpu.ops import clusters as JCl
 from molchanica_tpu.ops.cells import make_xla_direct_force_fn as j_window
 from molchanica_tpu.topology import make_topology as j_make_topology
+from molchanica_tpu_torch import tracing
 from molchanica_tpu_torch.md.config import MdConfig
 from molchanica_tpu_torch.ops import clusters as TCl
 from molchanica_tpu_torch.topology import make_topology
@@ -191,3 +192,179 @@ def test_energy_gradient_is_the_force(system):
     fa = stats["f_abs"]
     assert (f.abs().amax(1) <= fa * (1 + 1e-9) + 1e-12).all()
     assert stats["e_abs_lj"] >= abs(float(e_lj.detach())) * 0.999
+
+
+def _replicas(system, name, m_scale=1.0):
+    """Three replicas of the system (jittered by 0.1 A), their plan,
+    rebuilt lists and the direct-space function."""
+    _, tt, _, _, xt, bt, _ = _inputs(system, name)
+    cfg = MdConfig(lj_cutoff=RC, coulomb_cutoff=RC, dtype=name)
+    plan = TCl.plan_clusters(bt.numpy(), RC, 700, 768, m_scale=m_scale)
+    rebuild = TCl.make_cluster_rebuild_fn(plan, tt)
+    rng = np.random.default_rng(3)
+    xs = torch.stack([xt + torch.tensor(rng.normal(0, 0.1, xt.shape),
+                                        dtype=xt.dtype) for _ in range(3)])
+    lists = [rebuild(x, bt) for x in xs]
+    order = torch.stack([o for o, _, _ in lists])
+    nbr = torch.stack([nb for _, nb, _ in lists])
+    assert all(int(ovf) == 0 for _, _, ovf in lists)
+    return tt, cfg, plan, xs, bt, order, nbr
+
+
+@pytest.mark.parametrize("want_force", [True, False])
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_plain_replica_axis_equals_single_calls(system, name, want_force):
+    """The plain twin with a leading replica axis (as the farm calls it on
+    the CPU) gives each replica's single call, and the CPU dispatch is the
+    plain twin."""
+    tt, cfg, plan, xs, bt, order, nbr = _replicas(system, name)
+    direct = TCl.make_cluster_direct_force_fn(tt, cfg, plan)
+    couples = torch.tensor([1.0, 0.5, 0.25], dtype=xs.dtype)
+    f_b, elj_b, ec_b, ovf_b = direct.plain(xs, bt, couples, BETA, order,
+                                           nbr, want_force)
+    got = direct(xs, bt, couples, BETA, order, nbr, want_force)
+    assert elj_b.shape == ec_b.shape == ovf_b.shape == (3,)
+    assert (f_b is None) == (not want_force)
+    for r in range(3):
+        f1, elj1, ec1, _ = direct.plain(xs[r], bt, couples[r], BETA,
+                                        order[r], nbr[r], want_force)
+        if want_force:
+            scale = float(f1.abs().max())
+            assert float((f_b[r] - f1).abs().max()) <= 1e-12 * scale
+            assert torch.equal(got[0][r], f_b[r])
+        for e_b, e1, e_d in ((elj_b, elj1, got[1]), (ec_b, ec1, got[2])):
+            assert abs(float(e_b[r] - e1)) <= 1e-12 * abs(float(e1))
+            assert float(e_d[r]) == float(e_b[r])
+    with pytest.raises(ValueError, match="one replica"):
+        direct.plain(xs, bt, couples, BETA, order, nbr, stats={})
+
+
+@pytest.mark.parametrize("m_scale", [1.0, 1.5])
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_rebuild_rows_are_compacted(system, name, m_scale):
+    """Every row of the list holds its listed clusters before its -1
+    padding (the kernel stops a row at its first group of unlisted
+    slots), at the planned and at the replanned width, on the stored and
+    the jittered positions; rows do have padding."""
+    _, _, plan, xs, bt, order, nbr = _replicas(system, name, m_scale)
+    _, tt, _, _, xt, _, _ = _inputs(system, name)
+    nbrs = [TCl.make_cluster_rebuild_fn(plan, tt)(xt, bt)[1], *nbr]
+    for nb in nbrs:
+        listed = nb >= 0
+        assert not (listed[:, 1:] & ~listed[:, :-1]).any()
+        assert (~listed).any() and listed[:, 0].any()
+        # listed clusters ascend within a row, each once
+        ok = listed[:, 1:] & listed[:, :-1]
+        assert (nb[:, 1:] > nb[:, :-1])[ok].all()
+
+
+def test_cluster_force_cuda_checks(system):
+    """The kernel's wrapper raises on CPU tensors and on shapes, dtypes
+    and layouts the kernel does not take, before any launch; CPU tensors
+    take the plain twin and count no launch."""
+    _, tt, _, _, xt, bt, _ = _inputs(system, "float32")
+    cfg = MdConfig(lj_cutoff=RC, coulomb_cutoff=RC, dtype="float32")
+    plan = TCl.plan_clusters(bt.numpy(), RC, 700, 768)
+    order, nbr, _ = TCl.make_cluster_rebuild_fn(plan, tt)(xt, bt)
+    rows = TCl.direct_rows(tt)
+    args = dict(x=xt, box=bt, couple=1.0, beta=BETA, order=order, nbr=nbr,
+                rows=rows, rc2=RC * RC)
+
+    def call(**kw):
+        TCl.cluster_force_cuda(plan, **{**args, **kw})
+
+    before = tracing.counters("cluster_force")
+    with pytest.raises(ValueError, match="CUDA device"):
+        call()
+    for kw in (dict(x=xt[:-8]), dict(nbr=nbr[:, :-1]), dict(order=order[1:]),
+               dict(x=xt[None].repeat(2, 1, 1)), dict(rows=rows[:, :4]),
+               dict(couple=torch.ones(3)), dict(box=bt[:2]),
+               dict(x=xt[None, None])):
+        with pytest.raises(ValueError, match="shapes"):
+            call(**kw)
+    for kw in (dict(order=order.int()), dict(nbr=nbr.int()),
+               dict(rows=rows.double()),
+               dict(x=xt.half(), rows=rows.half())):
+        with pytest.raises(ValueError, match="dtypes"):
+            call(**kw)
+    for kw in (dict(x=xt.T.contiguous().T),
+               dict(nbr=nbr.T.contiguous().T),
+               dict(rows=rows.T.contiguous().T)):
+        with pytest.raises(ValueError, match="contiguous"):
+            call(**kw)
+    # replicas a padded stride apart (as vmap's placed sites lie) pass
+    xr = torch.zeros((2, 769, 3))[:, :768]
+    xr.copy_(xt.expand(2, -1, -1))
+    with pytest.raises(ValueError, match="CUDA device"):
+        call(x=xr, order=order.expand(2, -1).contiguous(),
+             nbr=nbr.expand(2, -1, -1).contiguous())
+    direct = TCl.make_cluster_direct_force_fn(tt, cfg, plan)
+    f, _, _, _ = direct(xt, bt, torch.tensor(1.0), BETA, order, nbr)
+    assert f.shape == (768, 3)
+    assert tracing.counters("cluster_force") == before
+
+
+def test_engine_takes_the_plain_twin_by_name(system, monkeypatch):
+    """MdSim on clusters asks the plain twin, by name, for the
+    direct-space scales and for the barostat's differentiable energy (the
+    kernel has no gradient), and the pressure is the one the dispatching
+    function gave before the kernel, which on the CPU is the plain twin
+    too."""
+    from molchanica_tpu_torch.md import engine as E
+    from molchanica_tpu_torch.md.barostat import scaling_pressure_bar
+    from molchanica_tpu_torch.md.config import BarostatCfg
+    from molchanica_tpu_torch.md.energy import (apply_virtual_sites,
+                                                make_energy_fn)
+
+    _, tt, _, _, xt, bt, _ = _inputs(system, "float64")
+    calls = {"direct": 0, "plain": 0}
+    real = E.make_cluster_direct_force_fn
+
+    def counted(top, cfg, plan):
+        d = real(top, cfg, plan)
+
+        def direct(*a, **kw):
+            calls["direct"] += 1
+            return d(*a, **kw)
+
+        def plain(*a, **kw):
+            calls["plain"] += 1
+            return d.plain(*a, **kw)
+
+        direct.plain = plain
+        return direct
+
+    monkeypatch.setattr(E, "make_cluster_direct_force_fn", counted)
+    cfg = MdConfig(lj_cutoff=RC, coulomb_cutoff=RC, dtype="float64",
+                   barostat_cfg=BarostatCfg(pressure_target=1.0, tau=0.1))
+    rng = np.random.default_rng(8)
+    v = rng.normal(0, 0.01, (768, 3))
+    v[700:] = 0.0
+    md = E.MdSim(tt, cfg, xt.numpy(), box_extent=bt.numpy(),
+                 method="cells_pme", relax=False, velocities=v,
+                 device="cpu")
+    assert md._nbr_backend == "clusters"
+    s = md.state
+    x, box, vel = s.positions, s.box, s.velocities
+    with torch.no_grad():
+        nbr, _ = md._rebuild_nbr(apply_virtual_sites(x, tt), box)
+    calls.update(direct=0, plain=0)
+    kw = dict(mol_id=tt.mol_id, n_mol=tt.n_mol)
+    p = scaling_pressure_bar(lambda a, b, c: md._energy_nbr(a, b, c, nbr),
+                             x, box, vel, tt.masses, tt.dof_mask, s.couple,
+                             **kw)
+    assert calls == {"direct": 0, "plain": 1}
+    md.direct_space_scales(x)
+    assert calls == {"direct": 0, "plain": 2}
+    rest_e = make_energy_fn(tt, md.cfg, "pme_rest", pme_recip_fn=md._recip)
+
+    def e_before(a, b, c):
+        a = apply_virtual_sites(a, tt)
+        _, e_lj, e_c, _ = md._direct(a, b, c, md._beta, *nbr,
+                                     want_force=False)
+        return rest_e(a, b, c)[0] + e_lj + e_c
+
+    p0 = scaling_pressure_bar(e_before, x, box, vel, tt.masses, tt.dof_mask,
+                              s.couple, **kw)
+    assert calls["direct"] == 1
+    assert torch.isfinite(p) and float(p) == float(p0)

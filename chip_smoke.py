@@ -1059,18 +1059,21 @@ def k2_check(tag, plan, direct, center, ghost, couple, beta, torch):
     grid: per slot and per cell within KERNEL_TOL_F / KERNEL_TOL_E of the
     pair-term magnitudes, total energy within KERNEL_TOL_E_TOT; the kernel's
     pair count (its `counts` pointer) equal to the plain count; two
-    launches the same bits. Returns (errors, plain stats, kernel output)."""
+    launches the same bits; both without the pairs of the wrapper's
+    exclusion table. Returns (errors, plain stats, kernel output)."""
     from molchanica_tpu_torch.ops.direct_force import (cell_energies,
                                                        direct_force_cuda,
                                                        direct_force_parity,
                                                        direct_force_plain)
 
     n_k = torch.zeros(1, dtype=torch.int64, device=center.device)
-    out_k = direct_force_cuda(plan, center, ghost, couple, beta, counts=n_k)
-    again = direct_force_cuda(plan, center, ghost, couple, beta)
+    excl = direct.excl
+    out_k = direct_force_cuda(plan, center, ghost, couple, beta, counts=n_k,
+                              excl=excl)
+    again = direct_force_cuda(plan, center, ghost, couple, beta, excl=excl)
     stats = {}
     out_p = direct_force_plain(center, ghost, direct.starts, couple, beta,
-                               direct.rc2, stats=stats)
+                               direct.rc2, stats=stats, excl=excl)
     torch.cuda.synchronize()
     same = torch.equal(out_k, again)
     e_k = cell_energies(out_k, plan.n_cells)
@@ -1140,14 +1143,16 @@ def k2_parity(md, torch):
     say(f"[parity] direct_force overflow={int(ovf)}")
     errs, stats, out_k = k2_check("direct_force", plan, direct, center,
                                   ghost, *args, torch)
-    launch = lambda: direct_force_cuda(plan, center, ghost, *args)
+    launch = lambda: direct_force_cuda(plan, center, ghost, *args,
+                                       excl=direct.excl)
     ms, call_ms = graph_ms(launch, 50), cuda_ms(launch, 50)
     plain_ms = cuda_ms(lambda: direct_force_plain(
-        center, ghost, direct.starts, *args, direct.rc2), 3)
+        center, ghost, direct.starts, *args, direct.rc2,
+        excl=direct.excl), 3)
     n_sm = torch.cuda.get_device_properties(center.device) \
         .multi_processor_count
     work = direct_force_work(center.cpu(), ghost.cpu(), direct.starts.cpu(),
-                             direct.rc2, n_sm)
+                             direct.rc2, n_sm, excl=direct.excl.to("cpu"))
     t_ops = (stats["pairs"] / 2 * (K2_PAIR_OPS + K2_REACTION_OPS)
              / PEAK_FP32 * 1e3)
     t_ordered = stats["pairs"] * K2_PAIR_OPS / PEAK_FP32 * 1e3
@@ -1182,13 +1187,15 @@ def k2_grid(seed, box, rc, density, torch, np, dev="cuda"):
     in `box`, binned at a rebuild and then moved by K2_GRID_MOVE A (rms per
     axis) with their images fixed at the rebuild, so that some lie outside
     [0, box) in their cells; LJ and charges drawn per site, the first
-    K2_GRID_COUPLED sites coupled."""
+    K2_GRID_COUPLED sites coupled; sites i and i + 1, i + 2 and i + 37 (i a
+    multiple of 5) excluded, so that the table reaches two words."""
     import types
 
     from molchanica_tpu_torch.ops.direct_force import (DirectForce,
                                                        image_shift,
                                                        make_rebuild_fn,
                                                        plan_window)
+    from molchanica_tpu_torch.ops.exclusions import exclusion_table
 
     rng = np.random.default_rng(seed)
     box = np.asarray(box, np.float32)
@@ -1201,13 +1208,19 @@ def k2_grid(seed, box, rc, density, torch, np, dev="cuda"):
         lj_eps=f32(rng.uniform(0.05, 0.2, n)),
         couple_mask=f32(np.arange(n) < K2_GRID_COUPLED),
         atom_mask=f32(np.ones(n)))
+    i = np.arange(0, n - 37, 5)
+    pairs = np.concatenate([np.stack([i, i + k], 1) for k in (1, 2, 37)])
+    top.excl_idx = torch.tensor(pairs, device=dev)
+    top.excl_mask = f32(np.ones(len(pairs)))
+    top.pair14_idx = torch.zeros((0, 2), dtype=torch.int64, device=dev)
+    top.pair14_mask = f32(np.zeros(0))
     plan = plan_window(box, rc, n, n, x0=x0)
     xt, bt = f32(x0), f32(box)
     sa, _, ovf = make_rebuild_fn(plan, top.atom_mask)(xt, bt)
     if int(ovf):
         raise SystemExit(f"K2 grid seed {seed}: overflow at the rebuild")
     x1 = xt + f32(rng.normal(0, K2_GRID_MOVE, (n, 3)))
-    direct = DirectForce(top, plan)
+    direct = DirectForce(top, plan, exclusion_table(top))
     center, ghost = direct.inputs(x1, bt, sa, image_shift(xt, bt))
     return plan, direct, center, ghost
 
@@ -1234,7 +1247,7 @@ def k2_grid_phase(torch, np, dev="cuda"):
         errs, stats, _ = k2_check(f"direct_force {tag}", plan, direct,
                                   center, ghost, couple, beta, torch)
         ms = graph_ms(lambda: direct_force_cuda(plan, center, ghost, couple,
-                                                beta), 20)
+                                                beta, excl=direct.excl), 20)
         say(f"[k2-grid] {tag}: {outside} sites outside [0, box) in their "
             f"cells; kernel {ms:.4f} ms (device)")
         out.append(dict(tag=tag, nc=plan.nc, capacity=plan.capacity,
@@ -2376,7 +2389,7 @@ def cluster_phase(md, torch, np):
     box, couple, beta = s.box, s.couple, md._beta
     with torch.no_grad():
         xv = apply_virtual_sites(s.positions, top)
-        order, nbr, ovf = md._rebuild(xv, box)
+        order, nbr, flags, ovf = md._rebuild(xv, box)
         counts = (nbr >= 0).sum(1)
         n, ncl = plan.n_atoms, plan.n_clusters
         slot = torch.empty_like(order)
@@ -2409,12 +2422,13 @@ def cluster_phase(md, torch, np):
                          f"(overflow {int(ovf)})")
 
     with torch.no_grad():
-        f_g, elj_g, ec_g, _ = md._direct(xv, box, couple, beta, order, nbr)
+        f_g, elj_g, ec_g, _ = md._direct(xv, box, couple, beta, order, nbr,
+                                         flags)
         f_g2, elj_g2, ec_g2, _ = md._direct(xv, box, couple, beta, order,
-                                            nbr)
+                                            nbr, flags)
         stats_g = {}
         f_p, elj_p, ec_p, _ = md._direct.plain(xv, box, couple, beta, order,
-                                               nbr, stats=stats_g)
+                                               nbr, flags, stats=stats_g)
     same = torch.equal(f_g, f_g2) and torch.equal(elj_g, elj_g2) \
         and torch.equal(ec_g, ec_g2)
     d_k = (f_g - f_p).abs().amax(1)
@@ -2432,14 +2446,16 @@ def cluster_phase(md, torch, np):
 
     with torch.no_grad():
         top_c = top.to("cpu")
-        direct_c = make_cluster_direct_force_fn(top_c, md.cfg, plan)
+        direct_c = make_cluster_direct_force_fn(top_c, md.cfg, plan,
+                                                md.exclusions.to("cpu"))
         stats = {}
         f_c, elj_c, ec_c, _ = direct_c(
             xv.cpu(), box.cpu(), couple.cpu(), beta.cpu(), order.cpu(),
-            nbr.cpu(), stats=stats)
+            nbr.cpu(), flags.cpu(), stats=stats)
         a = stats["f_abs"]
         win = make_xla_direct_force_fn(top, md.cfg, md._box_np,
-                                       x0=xv.cpu().numpy())
+                                       x0=xv.cpu().numpy(),
+                                       excl=md.exclusions)
         f_w, elj_w, ec_w, ovf_w = win(xv, box, couple, beta)
     f_max = float(f_c.abs().max())
     tol = ENGINE_TOL_F * f_max + ENGINE_TOL_DIRECT * a
@@ -2467,15 +2483,15 @@ def cluster_phase(md, torch, np):
     with torch.no_grad():
         t_rebuild = graph_ms(lambda: md._rebuild(xv, box), 5)
         t_clus = graph_ms(lambda: md._direct(xv, box, couple, beta, order,
-                                             nbr), 10)
+                                             nbr, flags), 10)
         t_win = graph_ms(lambda: win(xv, box, couple, beta), 5)
         e_rebuild = cuda_ms(lambda: md._rebuild(xv, box), 5)
         e_clus = cuda_ms(lambda: md._direct(xv, box, couple, beta, order,
-                                            nbr), 10)
+                                            nbr, flags), 10)
         e_win = cuda_ms(lambda: win(xv, box, couple, beta), 5)
         e_force = cuda_ms(lambda: md.force_fn(s.positions, box, couple), 10)
         t_plain = cuda_ms(lambda: md._direct.plain(xv, box, couple, beta,
-                                                   order, nbr), 2)
+                                                   order, nbr, flags), 2)
     nc_w, cap_w, shifts_w = win.plan
     regs = ptxas_report(cuda_build.build_log, "cluster_force_kernel")
     for line in regs:
@@ -3021,17 +3037,18 @@ def farm_k2_phase(asys, d, torch, np):
     plan, direct = md._plan, md._direct
     couples, beta = ch.c, md._beta
     n_b = torch.zeros(R, dtype=torch.int64, device="cuda")
+    excl = direct.excl
     out_b = direct_force_cuda(plan, center, ghost, couples, beta,
-                              counts=n_b)
+                              counts=n_b, excl=excl)
     worst_f = worst_e = err_max = 0.0
     pairs = []
     for k in range(R):
         out_1 = direct_force_cuda(plan, center[k], ghost[k], couples[k],
-                                  beta)
+                                  beta, excl=excl)
         stats = {}
         out_p = direct_force_plain(center[k], ghost[k], direct.starts,
                                    couples[k], beta, direct.rc2,
-                                   stats=stats)
+                                   stats=stats, excl=excl)
         torch.cuda.synchronize()
         same = torch.equal(out_b[k], out_1)
         rel_f, rel_e = direct_force_parity(
@@ -3057,14 +3074,16 @@ def farm_k2_phase(asys, d, torch, np):
         pairs.append(stats["pairs"])
     if len(set(pairs)) == 1:
         raise SystemExit("farm K2: the replicas did not diverge")
-    launch_b = lambda: direct_force_cuda(plan, center, ghost, couples, beta)
+    launch_b = lambda: direct_force_cuda(plan, center, ghost, couples, beta,
+                                         excl=excl)
     launch_1 = lambda: [direct_force_cuda(plan, center[k], ghost[k],
-                                          couples[k], beta)
+                                          couples[k], beta, excl=excl)
                         for k in range(R)]
     ms_b, ms_1 = graph_ms(launch_b, 20), graph_ms(launch_1, 20)
     call_ms = cuda_ms(launch_b, 20)
     plain_ms = cuda_ms(lambda: direct_force_plain(
-        center, ghost, direct.starts, couples, beta, direct.rc2), 1)
+        center, ghost, direct.starts, couples, beta, direct.rc2,
+        excl=excl), 1)
     t_ops = sum(pairs) / 2 * (K2_PAIR_OPS + K2_REACTION_OPS) \
         / PEAK_FP32 * 1e3
     nbytes = (center.numel() + ghost.numel() + 2 * R + out_b.numel()) * 4

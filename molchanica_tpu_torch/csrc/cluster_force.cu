@@ -33,28 +33,35 @@
 // - For each of the 8 atoms of a j cluster the lanes fetch the j atom by a
 //   shuffle from the lane that loaded it, test the pair with the plain
 //   version's rounding (no FMA contraction in the minimum image and r^2,
-//   r^2 summed in the order torch sums it on the card), and skip the pair
-//   math when no lane of the warp has a pair inside the cutoff. The
-//   rounding of r^2 matters beyond the cutoff test: an excluded solute
-//   pair's LJ force (~1e6 kcal/mol/A at r^-14) carries it, amplified, and
-//   the rest energy's float32 subtraction of that pair (plain torch, the
-//   same r^2) cancels it only where the two round alike. With r^2 summed
-//   as (x^2 + y^2) + z^2 the duplex's largest per-atom force error grew
-//   from 4.0e-3 to 1.4e-2 of |F| + median |F| (H100 run, same state).
+//   r^2 summed in the order torch sums it on the card), so that both
+//   count the same pairs, and skip the pair math when no lane of the warp
+//   has a pair inside the cutoff.
+// - Excluded and 1-4 pairs never enter: the rebuild flags each list
+//   entry whose two clusters hold such a pair (one byte per entry;
+//   ops/clusters.py; 3.7% of the duplex's listed entries), a lane loads
+//   its slot's flag, and in a group of slots with a flag each lane of a
+//   flagged slot looks its i atom up against the slot's 8 j atoms in the
+//   topology's exclusion table (ops/exclusions.py, one word load each, as
+//   K2 does; the sites from `order`) into an 8-bit row, before the pair
+//   loop; a marked pair counts as outside the cutoff. An 8 x 8 bit mask
+//   per entry (GROMACS's nbnxm interaction masks) would cost the list 8
+//   bytes an entry, 17.5 MB for the duplex's 4 replicas, 1.4% of its peak
+//   memory. The rest energy adds those pairs' own terms; a bonded pair's
+//   LJ force of ~1e4-1e6 kcal/mol/A, added here and subtracted there,
+//   would cancel only to a few kcal/mol/A in float32.
 // - Forces stay center-side, as in the plain version (every pair is seen
 //   from both of its clusters; the self tile holds each pair twice), so no
-//   atomics: a lane sums its i atom's force in double (an excluded solute
-//   pair's ~1e6 kcal/mol/A, which the rest energy takes out again, would
-//   swamp a float32 running sum), the 4 lanes of an i atom are summed by
-//   two xor shuffles, the warps in warp order, and the block writes
-//   F[order[s]] x atom_mask once per atom, rounded once. The energies are
+//   atomics: a lane sums its i atom's force in T, the 4 lanes of an i
+//   atom are summed by two xor shuffles, the warps in warp order (in
+//   double), and the block writes F[order[s]] x atom_mask once per atom.
+//   The energies are
 //   summed per lane in double, over the lanes by a fixed xor tree, over
 //   the warps in order into the [R, NC, 2] partials; a second kernel sums
 //   a replica's clusters in a fixed order and writes the half sums. The
 //   output is the same bits on every launch.
 // - No --use_fast_math: the pair math follows ops/clusters.py::_pair_math
-//   (IEEE divides and square roots), so the excluded and 1-4 pairs it adds
-//   cancel against the rest energy's subtraction to roundoff.
+//   (IEEE divides and square roots), so the kernel and its twin agree to
+//   roundoff.
 //
 // Layouts (every array but rows, beta and box has a leading replica axis
 // of n_rep):
@@ -62,6 +69,11 @@
 //          x_rstride elements apart (vmap's outputs pad them)
 //   order  [n] int64: the atom of each sorted slot (a permutation of n)
 //   nbr    [ncl, m] int64: each cluster's listed clusters, then -1
+//   flags  [ncl, m] uint8: 1 where the entry's clusters hold an excluded
+//          pair (above)
+//   excl   [n, words] u32, shared by the replicas: bit (d - 1) % 32 of
+//          word (d - 1) / 32 of row i set where sites i and i + d are an
+//          excluded or 1-4 pair
 //   rows   [n, 5] T: q * atom_mask, sigma, eps, couple mask, atom mask
 //   couple [1] or [n_rep] T (couple_step 0 or 1); beta [1] T; box [3] T
 //   f      [n, 3] T (want_force), every row written
@@ -119,6 +131,15 @@ __device__ __forceinline__ double exp_(double a) { return exp(a); }
 __device__ __forceinline__ float abs_(float a) { return fabsf(a); }
 __device__ __forceinline__ double abs_(double a) { return fabs(a); }
 
+// whether sites a and b are an excluded or 1-4 pair (ops/exclusions.py)
+__device__ __forceinline__ bool excluded(const unsigned* __restrict__ excl,
+                                         int words, int a, int b) {
+  const int d = abs(a - b) - 1;
+  const int lo = min(a, b);
+  if (d < 0 || d >= 32 * words || lo < 0) return false;
+  return (__ldg(excl + (size_t)lo * words + (d >> 5)) >> (d & 31)) & 1u;
+}
+
 // x - box floor(x / box): the plain version's wrap into [0, box)
 template <typename T>
 __device__ __forceinline__ T wrap(T v, T b) {
@@ -141,6 +162,8 @@ cluster_force_kernel(int n, int ncl, int m, const T* __restrict__ x,
                      long long x_rstride,
                      const int64_t* __restrict__ order,
                      const int64_t* __restrict__ nbr,
+                     const uint8_t* __restrict__ flags,
+                     const unsigned* __restrict__ excl, int excl_words,
                      const T* __restrict__ rows,
                      const T* __restrict__ couple, int couple_step,
                      const T* __restrict__ beta_p, const T* __restrict__ box,
@@ -158,6 +181,7 @@ cluster_force_kernel(int n, int ncl, int m, const T* __restrict__ x,
   x += r * x_rstride;
   order += r * n;
   nbr += (r * ncl + c) * (size_t)m;
+  flags += (r * ncl + c) * (size_t)m;
   const T bx = box[0], by = box[1], bz = box[2];
   const T ibx = T(1) / bx, iby = T(1) / by, ibz = T(1) / bz;
   const T cp = couple[r * couple_step];
@@ -174,10 +198,9 @@ cluster_force_kernel(int n, int ncl, int m, const T* __restrict__ x,
   const T i_am = ra[4];
   const bool iv = i_am > T(0);
 
-  // an excluded solute pair adds a force of up to ~1e6 kcal/mol/A that
-  // the rest energy takes out again: float32 running sums would round each
-  // later term of the atom at that scale
-  double fx = 0.0, fy = 0.0, fz = 0.0;
+  // the force sums in T: with no excluded pair's ~1e6 kcal/mol/A to carry
+  // they need no double (which cost 3% of the kernel's time)
+  T fx = T(0), fy = T(0), fz = T(0);
   double elj = 0.0, ec = 0.0;
   for (int g = wp; g * GROUP < m; g += NWARP) {
     const int s = g * GROUP + jg;
@@ -186,8 +209,11 @@ cluster_force_kernel(int n, int ncl, int m, const T* __restrict__ x,
     T jx = T(0), jy = T(0), jz = T(0), jq = T(0), js = T(0), je = T(0);
     T jcm = T(0);
     int jv = 0;
+    int aj = -1;
+    bool fl = false;                    // the entry holds an excluded pair
     if (cj >= 0) {
-      const int64_t aj = order[cj * CL + k];
+      fl = flags[s] != 0;
+      aj = (int)order[cj * CL + k];
       const T* xb = x + aj * 3;
       const T* rb = rows + aj * 5;
       jx = wrap(xb[0], bx);
@@ -198,6 +224,18 @@ cluster_force_kernel(int n, int ncl, int m, const T* __restrict__ x,
       je = rb[2];
       jcm = rb[3];
       jv = rb[4] > T(0);
+    }
+    // this i atom's row of the entry's exclusions (bit ja: j atom ja),
+    // looked up only in groups with a flagged slot; the 8 loads are
+    // independent, so their latencies overlap
+    unsigned ex_row = 0;
+    if (__any_sync(FULL_MASK, fl)) {                  // uniform
+#pragma unroll
+      for (int ja = 0; ja < CL; ++ja) {
+        const int sa = __shfl_sync(FULL_MASK, aj, (lane & ~(CL - 1)) | ja);
+        if (fl && excluded(excl, excl_words, (int)ai, sa))
+          ex_row |= 1u << ja;
+      }
     }
 #pragma unroll
     for (int ja = 0; ja < CL; ++ja) {
@@ -212,7 +250,8 @@ cluster_force_kernel(int n, int ncl, int m, const T* __restrict__ x,
       // torch's sum(d * d, -1) on the card: (x^2 + z^2) + y^2
       const T r2 = add_rn(add_rn(mul_rn(dx, dx), mul_rn(dz, dz)),
                           mul_rn(dy, dy));
-      const bool ok = iv && sv && r2 < rc2 && r2 > rmin;
+      const bool ok = iv && sv && r2 < rc2 && r2 > rmin &&
+                      !((ex_row >> ja) & 1u);
       if (!__any_sync(FULL_MASK, ok)) continue;       // uniform
       const T sq = __shfl_sync(FULL_MASK, jq, src);
       const T ss = __shfl_sync(FULL_MASK, js, src);
@@ -256,9 +295,9 @@ cluster_force_kernel(int n, int ncl, int m, const T* __restrict__ x,
             : T(0);
         const T dc = T(-0.5) * kqq * inv_r2 * (erfc_v * inv_r + c_ex * ex);
         const T coeff = ok ? dlj + dc : T(0);
-        fx += (double)(coeff * dx);
-        fy += (double)(coeff * dy);
-        fz += (double)(coeff * dz);
+        fx += coeff * dx;
+        fy += coeff * dy;
+        fz += coeff * dz;
       }
     }
   }
@@ -342,20 +381,22 @@ cluster_energy_sum(const double* __restrict__ e_part, int ncl,
 template <typename T>
 int launch(int want_force, int n_rep, int n, int ncl, int m,
            int couple_step, long long x_rstride, double rc2, const void* x,
-           const void* order,
-           const void* nbr, const void* rows, const void* couple,
-           const void* beta, const void* box, void* f, void* e_part,
-           void* e_out, cudaStream_t stream) {
+           const void* order, const void* nbr, const void* flags,
+           const void* excl, int excl_words, const void* rows,
+           const void* couple, const void* beta, const void* box, void* f,
+           void* e_part, void* e_out, cudaStream_t stream) {
   const dim3 grid(ncl, n_rep);
   if (want_force)
     cluster_force_kernel<T, true><<<grid, THREADS, 0, stream>>>(
         n, ncl, m, (const T*)x, x_rstride, (const int64_t*)order,
-        (const int64_t*)nbr, (const T*)rows, (const T*)couple, couple_step,
+        (const int64_t*)nbr, (const uint8_t*)flags, (const unsigned*)excl,
+        excl_words, (const T*)rows, (const T*)couple, couple_step,
         (const T*)beta, (const T*)box, (T)rc2, (T*)f, (double*)e_part);
   else
     cluster_force_kernel<T, false><<<grid, THREADS, 0, stream>>>(
         n, ncl, m, (const T*)x, x_rstride, (const int64_t*)order,
-        (const int64_t*)nbr, (const T*)rows, (const T*)couple, couple_step,
+        (const int64_t*)nbr, (const uint8_t*)flags, (const unsigned*)excl,
+        excl_words, (const T*)rows, (const T*)couple, couple_step,
         (const T*)beta, (const T*)box, (T)rc2, nullptr, (double*)e_part);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -376,21 +417,23 @@ extern "C" int cluster_force_launch(int dtype64, int want_force, int n_rep,
                                     long long x_rstride, double rc2,
                                     const void* x,
                                     const void* order, const void* nbr,
-                                    const void* rows, const void* couple,
-                                    const void* beta, const void* box,
-                                    void* f, void* e_part, void* e_out,
-                                    void* stream) {
+                                    const void* flags, const void* excl,
+                                    int excl_words, const void* rows,
+                                    const void* couple, const void* beta,
+                                    const void* box, void* f, void* e_part,
+                                    void* e_out, void* stream) {
   if (n_rep <= 0 || n_rep > 65535 || ncl <= 0 || n != ncl * CL || m <= 0
       || (couple_step != 0 && couple_step != 1)
       || (n_rep > 1 && x_rstride < 3LL * n)
-      || (want_force && f == nullptr))
+      || (want_force && f == nullptr) || excl == nullptr
+      || excl_words <= 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   return dtype64
       ? launch<double>(want_force, n_rep, n, ncl, m, couple_step, x_rstride,
-                       rc2, x, order, nbr, rows, couple, beta, box, f, e_part,
-                       e_out, s)
+                       rc2, x, order, nbr, flags, excl, excl_words, rows,
+                       couple, beta, box, f, e_part, e_out, s)
       : launch<float>(want_force, n_rep, n, ncl, m, couple_step, x_rstride,
-                      rc2, x, order, nbr, rows, couple, beta, box, f, e_part,
-                      e_out, s);
+                      rc2, x, order, nbr, flags, excl, excl_words, rows,
+                      couple, beta, box, f, e_part, e_out, s);
 }

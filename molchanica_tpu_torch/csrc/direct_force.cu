@@ -53,12 +53,22 @@
 //   the warps in order, and into the part's slot of the `scratch` partials;
 //   a second kernel sums a cell's parts in part order and writes the half
 //   sums. The output is the same bits on every launch.
+// - Excluded and 1-4 pairs never enter: a queued pair is looked up in the
+//   topology's exclusion table (ops/exclusions.py, one word load where the
+//   two site indices lie within its reach W, none otherwise) as its lane
+//   takes it for the math, so that the distance test stays a compare and a
+//   ballot, and a set bit zeroes the pair's terms. The rest energy adds those
+//   pairs' own terms (the Ewald exclusion correction, the scaled 1-4
+//   terms), so nothing large is added here and taken out there: a bonded
+//   pair at 1-1.5 A carries 1e4-1e5 kcal/mol/A of LJ force, which two
+//   float32 evaluations of it from differently wrapped coordinates do not
+//   cancel to better than a few kcal/mol/A.
 //
 // Layouts, per replica (every array has a leading replica axis of n_rep;
 // the grid's z axis is the replica, so one launch runs n_rep independent
 // grids of the same plan, the counterpart of vmap over the pallas_call):
 //   center [n_cells C, 8] f32 rows: x, y, z (wrapped into [0, box)), q,
-//          sigma, eps, couple mask, valid (0 = empty slot)
+//          sigma, eps, couple mask, site index + 1 (0 = empty slot)
 //   ghost  [8, G] f32 property-major, G = gx gy gz C, positions shifted by
 //          whole boxes in the halo
 //   params [2] f32: couple, beta
@@ -66,7 +76,11 @@
 //          cell's 0.5 sum(e_lj) in row 0, 0.5 sum(e_c) in row 1, else 0
 //   scratch [n_cells * C / 32 * 2] f64: per-(cell, part) LJ and Coulomb sums
 //   counts [1] i64 or null: when set, the kernel adds the number of pairs
-//          that passed the cutoff and mask test (one atomic per warp)
+//          that passed the cutoff, mask and exclusion tests (one atomic per
+//          warp)
+//   excl   [n_sites, words] u32, shared by the replicas: bit (d - 1) % 32
+//          of word (d - 1) / 32 of row i set where sites i and i + d are an
+//          excluded or 1-4 pair
 #include <cuda_runtime.h>
 
 namespace {
@@ -92,6 +106,15 @@ constexpr float AS_A3 = -1.453152027f;
 constexpr float AS_A4 = 1.061405429f;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
+// whether sites a and b are an excluded or 1-4 pair (ops/exclusions.py)
+__device__ __forceinline__ bool excluded(const unsigned* __restrict__ excl,
+                                         int words, int a, int b) {
+  const int d = abs(a - b) - 1;
+  const int lo = min(a, b);
+  if (d < 0 || d >= 32 * words || lo < 0) return false;
+  return (__ldg(excl + (size_t)lo * words + (d >> 5)) >> (d & 31)) & 1u;
+}
+
 // r^2 of the plain version, without FMA contraction
 __device__ __forceinline__ float dist2_rn(float dx, float dy, float dz) {
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
@@ -104,10 +127,12 @@ direct_force_kernel(const float* __restrict__ center,
                     const float* __restrict__ params, int cap, int ncy,
                     int ncz, int gy, int gz, float rc2,
                     float* __restrict__ out, double* __restrict__ e_part,
-                    unsigned long long* __restrict__ counts) {
+                    unsigned long long* __restrict__ counts,
+                    const unsigned* __restrict__ excl, int excl_words) {
   __shared__ float4 s_pos[PART_I];               // x, y, z, q
   __shared__ float4 s_par[PART_I];               // sigma, eps, couple, -
   __shared__ int s_slot[PART_I];                 // the i's center slot
+  __shared__ int s_site[PART_I];                 // the i's site index
   __shared__ int s_j[MAX_SCAN];                  // kept ghost slots
   __shared__ unsigned short s_q[NWARP][QCAP];    // (i << 5) | j lane
   __shared__ float s_f[NWARP][3][PART_I];        // per-warp i-forces
@@ -178,6 +203,7 @@ direct_force_kernel(const float* __restrict__ center,
     s_pos[rank - i_lo] = make_float4(cx, cy, cz, c[3]);
     s_par[rank - i_lo] = make_float4(c[4], c[5], c[6], 0.f);
     s_slot[rank - i_lo] = t;
+    s_site[rank - i_lo] = (int)c[7] - 1;
   }
   // the bounding box of the part's sites
   float bb[6] = {mine ? cx : INFINITY,  mine ? cy : INFINITY,
@@ -269,9 +295,8 @@ direct_force_kernel(const float* __restrict__ center,
   const float beta = params[1];
   const float c_ex = TWO_OVER_SQRT_PI * beta;
   unsigned short* q = s_q[wp];
-  double elj = 0.0, ec = 0.0;   // a cell's sums mix excluded solute pairs
-                                // of up to LJ_CLIP with thousands of small
-                                // terms: float32 running sums lose ~1e-5
+  double elj = 0.0, ec = 0.0;   // a cell's sums of thousands of terms, as
+                                // the plain version sums them
   unsigned long long n_pairs = 0;
   const int n_ch = (n_j + 31) / 32;
   for (int ch = wp; ch < n_ch; ch += NWARP) {
@@ -279,6 +304,7 @@ direct_force_kernel(const float* __restrict__ center,
     const bool in = jj < n_j;
     float jx = 0.f, jy = 0.f, jz = 0.f, jq = 0.f, js = 0.f, je = 0.f;
     float jc = 0.f;
+    int jsite = -1;
     if (in) {
       const size_t g = (size_t)s_j[jj];
       jx = ghost[g];
@@ -288,6 +314,7 @@ direct_force_kernel(const float* __restrict__ center,
       js = ghost[4 * Gs + g];
       je = ghost[5 * Gs + g];
       jc = ghost[6 * Gs + g];
+      jsite = (int)ghost[7 * Gs + g] - 1;
     }
     int cnt = 0;
     for (int ii = 0; ii < n_i; ++ii) {
@@ -300,12 +327,15 @@ direct_force_kernel(const float* __restrict__ center,
       cnt += __popc(m);
       if (cnt <= QCAP - 32 && ii < n_i - 1) continue;   // uniform
       __syncwarp();
-      n_pairs += cnt;
       for (int b = 0; b < cnt; b += 32) {
-        const bool valid = b + lane < cnt;
-        const int qe = valid ? (int)q[b + lane] : 0;
+        const bool queued = b + lane < cnt;
+        const int qe = queued ? (int)q[b + lane] : 0;
         const int i = qe >> 5;
         const int jl = qe & 31;
+        const int ssite = __shfl_sync(FULL_MASK, jsite, jl);
+        const bool valid =
+            queued && !excluded(excl, excl_words, s_site[i], ssite);
+        n_pairs += __popc(__ballot_sync(FULL_MASK, valid));
         const float sx = __shfl_sync(FULL_MASK, jx, jl);
         const float sy = __shfl_sync(FULL_MASK, jy, jl);
         const float sz = __shfl_sync(FULL_MASK, jz, jl);
@@ -359,9 +389,10 @@ direct_force_kernel(const float* __restrict__ center,
           pz = coeff * dz;
         }
         // the i-force: a segmented sum over the lanes of each i (a spent
-        // lane is a segment of its own) in a fixed order, then one add to
-        // the warp's partial by the segment's first lane
-        const int key = valid ? i : PART_I + lane;
+        // lane is a segment of its own; an excluded pair adds zeros) in a
+        // fixed order, then one add to the warp's partial by the segment's
+        // first lane
+        const int key = queued ? i : PART_I + lane;
 #pragma unroll
         for (int o = 1; o < 32; o <<= 1) {
           const int ko = __shfl_down_sync(FULL_MASK, key, o);
@@ -375,7 +406,7 @@ direct_force_kernel(const float* __restrict__ center,
           }
         }
         const int k_prev = __shfl_up_sync(FULL_MASK, key, 1);
-        if (valid && (lane == 0 || k_prev != key)) {
+        if (queued && (lane == 0 || k_prev != key)) {
           s_f[wp][0][i] += px;
           s_f[wp][1][i] += py;
           s_f[wp][2][i] += pz;
@@ -440,15 +471,17 @@ direct_force_energy(const double* __restrict__ e_part, int n_cells,
 // out, scratch and counts; the grid's z axis), allocates nothing, returns
 // cudaGetLastError() (or cudaErrorInvalidValue for arguments it does not
 // take). scratch holds n_rep * n_cells * cap / 32 * 2 doubles; counts is
-// null or n_rep int64.
+// null or n_rep int64; excl is the exclusion table of excl_words words a
+// site, which every replica reads.
 extern "C" int direct_force_launch(int n_rep, int n_cells, int cap, int ncy,
                                    int ncz, int gy, int gz, int G, float rc2,
                                    const void* center, const void* ghost,
                                    const void* params, void* out,
                                    void* scratch, void* counts,
+                                   const void* excl, int excl_words,
                                    void* stream) {
   if (cap <= 0 || cap % PART_I != 0 || cap > MAX_CAP || scratch == nullptr
-      || n_rep <= 0 || n_rep > 65535)
+      || n_rep <= 0 || n_rep > 65535 || excl == nullptr || excl_words <= 0)
     return (int)cudaErrorInvalidValue;
   if (n_cells <= 0) return (int)cudaGetLastError();
   const int parts = cap / PART_I;
@@ -456,7 +489,7 @@ extern "C" int direct_force_launch(int n_rep, int n_cells, int cap, int ncy,
                         (cudaStream_t)stream>>>(
       (const float*)center, (const float*)ghost, G, (const float*)params,
       cap, ncy, ncz, gy, gz, rc2, (float*)out, (double*)scratch,
-      (unsigned long long*)counts);
+      (unsigned long long*)counts, (const unsigned*)excl, excl_words);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   direct_force_energy<<<(2 * n_cells * n_rep + 255) / 256, 256, 0,

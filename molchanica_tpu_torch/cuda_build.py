@@ -23,7 +23,7 @@ SOURCES = [os.path.join(_HERE, "csrc", name)
 BUILD_DIR = os.path.join(_HERE, "_build")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # no --use_fast_math: the kernels' pair math must match the plain torch
-# versions (and the exclusion-subtraction paths) to float32 roundoff
+# versions to float32 roundoff
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v"]
 
@@ -32,9 +32,10 @@ _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 # argtypes of each source's C entry point (each returns a cudaError_t)
 ENTRIES = {
     "colpair_launch": [_I] * 10 + [_P] * 13,
-    "direct_force_launch": [_I] * 8 + [_F] + [_P] * 7,
+    "direct_force_launch": [_I] * 8 + [_F] + [_P] * 7 + [_I, _P],
     "probe_launch": [_I] * 3 + [_P] * 7,
-    "cluster_force_launch": [_I] * 7 + [ctypes.c_longlong, _D] + [_P] * 11,
+    "cluster_force_launch": [_I] * 7 + [ctypes.c_longlong, _D] + [_P] * 5
+    + [_I] + [_P] * 8,
 }
 
 _lib = None

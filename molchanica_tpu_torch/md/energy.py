@@ -16,7 +16,6 @@ import torch
 from ..constants import COULOMB_CONST
 from ..ops import nonbonded as nb
 from ..ops.bonded import bonded_energy
-from ..ops.direct_force import pairlist_kernel_formula_energy
 from ..ops.pme import ewald_beta_for
 
 
@@ -56,9 +55,9 @@ def make_energy_fn(top, cfg, method: str = "allpairs", pme_recip_fn=None,
     batches PME outside vmap). "cells_pme" takes direct_space_fn(x, box,
     couple, beta) -> (e_lj, e_c, overflow)
     (ops/cells.py::make_cell_direct_space_fn) and pme_recip_fn;
-    "pme_rest" is reciprocal + self + erf exclusion correction, minus the
-    kernel-formula contribution of excluded and 1-4 pairs (the direct-force
-    backends add every close pair). With coupled atoms, the PME methods add
+    "pme_rest" is reciprocal + self + erf exclusion correction (the
+    direct-force backends leave the excluded and 1-4 pairs out, so nothing
+    is subtracted here). With coupled atoms, the PME methods add
     the couple-intramol=no compensation of the coupled molecule's own
     pairs. The 1-4 pairs add full Coulomb at 1/scee and LJ at 1/scnb."""
     if method not in ("allpairs", "allpairs_cutoff", "cells_pme",
@@ -73,7 +72,6 @@ def make_energy_fn(top, cfg, method: str = "allpairs", pme_recip_fn=None,
     im_idx = torch.as_tensor(im_idx_np, device=dev).to(torch.int64)
     im_mask = torch.as_tensor(im_mask_np, device=dev).to(top.masses.dtype)
     ewald_beta = ewald_beta_for(cfg.coulomb_cutoff, cfg.ewald_rtol)
-    rc2 = max(cfg.lj_cutoff, cfg.coulomb_cutoff) ** 2
 
     def energy(x, box, couple, recip=None):
         x = apply_virtual_sites(x, top)
@@ -93,22 +91,14 @@ def make_energy_fn(top, cfg, method: str = "allpairs", pme_recip_fn=None,
                 lj_enabled=not ov.lj_disabled,
                 coulomb_enabled=not ov.coulomb_disabled)
         else:
+            e_lj = e_c = zero
             if method == "cells_pme":
                 e_lj, e_c, overflow = direct_space_fn(x, box, couple,
                                                       ewald_beta)
-            else:
-                el_x, ec_x = pairlist_kernel_formula_energy(
-                    x, box, top, top.excl_idx, top.excl_mask, couple,
-                    ewald_beta, rc2)
-                el_4, ec_4 = pairlist_kernel_formula_energy(
-                    x, box, top, top.pair14_idx, top.pair14_mask, couple,
-                    ewald_beta, rc2)
-                e_lj = -(el_x + el_4)
-                e_c = -(ec_x + ec_4)
-            if ov.lj_disabled:
-                e_lj = torch.zeros_like(e_lj)
-            if ov.coulomb_disabled:
-                e_c = torch.zeros_like(e_c)
+                if ov.lj_disabled:
+                    e_lj = torch.zeros_like(e_lj)
+                if ov.coulomb_disabled:
+                    e_c = torch.zeros_like(e_c)
             if not (ov.long_range_recip_disabled or ov.coulomb_disabled):
                 e_recip = pme_recip_fn(x, box, couple) if recip is None \
                     else recip

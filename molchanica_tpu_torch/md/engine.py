@@ -14,9 +14,11 @@ boxes of up to 2,048 sites, "cells_pme" above. The direct space of
   window    the dense shift window (ops/cells.py), for smaller boxes or
             with cfg.direct_backend == "window"
 
-Their forces are analytic; PME, bonded and the exclusion subtraction
-("pme_rest") come by autograd. The allpairs methods are autograd of their
-energy throughout.
+Each leaves out the excluded and 1-4 pairs, looked up in the topology's
+exclusion table (ops/exclusions.py), built once per MdSim. Their forces
+are analytic; PME, bonded, the Ewald exclusion correction and the scaled
+1-4 terms ("pme_rest") come by autograd. The allpairs methods are
+autograd of their energy throughout.
 
 One call of `step(dt, n)` is a Python loop over exactly n steps:
 
@@ -62,6 +64,7 @@ from ..ops.clusters import (make_cluster_direct_force_fn,
                             make_cluster_rebuild_fn, plan_clusters)
 from ..ops.direct_force import (DirectForce, image_shift, make_rebuild_fn,
                                 plan_window)
+from ..ops.exclusions import exclusion_table
 from ..ops.pme import ewald_beta_for, make_pme_recip_fn
 from .barostat import berendsen_scale_chunk
 from .config import MdConfig
@@ -165,6 +168,9 @@ class MdSim:
         self._ndof = csvr_ndof(self.top.dof_mask, self.n_constraints)
         self.force_evals = 0       # force evaluations (K2: kernel launches)
         self._m_scale = 1.0        # cluster-list width factor (replans)
+        # the pairs every direct-space backend leaves out
+        self.exclusions = exclusion_table(self.top) \
+            if self.method == "cells_pme" else None
         self._build_force_paths(x0_np)
         self._external_forces_fn = external_forces_fn
 
@@ -315,7 +321,7 @@ class MdSim:
             plan = plan_window(box_np, cutoff, top.n_atoms_real,
                                top.n_atoms, x0=x0_np)
             rebuild = make_rebuild_fn(plan, top.atom_mask)
-            self._direct = kernel = DirectForce(top, plan)
+            self._direct = kernel = DirectForce(top, plan, self.exclusions)
             self._nbr_backend = "pallas"
 
             def rebuild_nbr(xv, box):
@@ -333,13 +339,14 @@ class MdSim:
                 and (box_np >= 2.0 * cutoff).all():
             plan = plan_clusters(box_np, cutoff, top.n_atoms_real,
                                  top.n_atoms, m_scale=self._m_scale)
-            rebuild = make_cluster_rebuild_fn(plan, top)
-            self._direct = clus = make_cluster_direct_force_fn(top, cfg, plan)
+            rebuild = make_cluster_rebuild_fn(plan, top, self.exclusions)
+            self._direct = clus = make_cluster_direct_force_fn(
+                top, cfg, plan, self.exclusions)
             self._nbr_backend = "clusters"
 
             def rebuild_nbr(xv, box):
-                order, nbr, ovf = rebuild(xv, box)
-                return (order, nbr), ovf
+                order, nbr, flags, ovf = rebuild(xv, box)
+                return (order, nbr, flags), ovf
 
             def direct_nbr(x, box, couple, nbr, want_force=True):
                 return clus(x, box, couple, beta, *nbr,
@@ -353,7 +360,8 @@ class MdSim:
 
             self._rebuild = rebuild
         else:
-            win = make_xla_direct_force_fn(top, cfg, box_np, x0=x0_np)
+            win = make_xla_direct_force_fn(top, cfg, box_np, x0=x0_np,
+                                           excl=self.exclusions)
             self._direct = win
             plan = win.plan
             self._nbr_backend = "window"
@@ -435,7 +443,7 @@ class MdSim:
         if getattr(self, "_baro_e_fn", None) is None:
             direct = make_cell_direct_space_fn(
                 self.top, self.cfg, self._box_np,
-                x0=_np(self.state.positions))
+                x0=_np(self.state.positions), excl=self.exclusions)
             self._baro_e_fn = make_energy_fn(
                 self.top, self.cfg, "cells_pme", pme_recip_fn=self._recip,
                 direct_space_fn=direct)
@@ -672,9 +680,8 @@ class MdSim:
         per atom, the sum over its pairs of the pair-force term magnitudes
         (M-site rows spread onto O/H1/H2 as the force is); and for the "lj"
         and "coulomb" energy terms, the half sums of |e_lj| and |e_c| over
-        all pairs. Both hold the excluded solute pairs that the rest energy
-        subtracts again, which is where float32 leaves its largest
-        residue."""
+        all pairs (the excluded and 1-4 pairs left out, as the backends
+        leave them out)."""
         from ..ops.direct_force import direct_force_plain
 
         s = self.state
@@ -685,12 +692,13 @@ class MdSim:
             sa, inv, _ = self._rebuild(xv, s.box)
             center, ghost = self._direct.inputs(xv, s.box, sa)
             direct_force_plain(center, ghost, self._direct.starts, s.couple,
-                               self._beta, self._direct.rc2, stats=stats)
+                               self._beta, self._direct.rc2, stats=stats,
+                               excl=self._direct.excl)
             a = (stats["f_abs"][inv] * top.atom_mask)[:, None]
         elif self._nbr_backend == "clusters":
-            order, nbr, _ = self._rebuild(xv, s.box)
+            order, nbr, flags, _ = self._rebuild(xv, s.box)
             self._direct.plain(xv, s.box, s.couple, self._beta, order, nbr,
-                               want_force=False, stats=stats)
+                               flags, want_force=False, stats=stats)
             a = stats["f_abs"][:, None]
         else:
             raise ValueError(f"no direct-space scales for backend "
@@ -716,7 +724,8 @@ def compute_energy_snapshot(top, cfg: MdConfig, x, box_extent=None,
     direct_fn = recip_fn = None
     if sim_method == "cells_pme":
         direct_fn = make_cell_direct_space_fn(top, cfg,
-                                              np.asarray(box_extent), x0=x)
+                                              np.asarray(box_extent), x0=x,
+                                              excl=exclusion_table(top))
         recip_fn = make_pme_recip_fn(top, cfg, np.asarray(box_extent),
                                      device=dev)
     e_fn = make_energy_fn(top, cfg, sim_method, pme_recip_fn=recip_fn,

@@ -11,12 +11,12 @@ not fit.
 Two functions are built on the grid:
   make_xla_direct_force_fn   MdSim's "window" backend: analytic forces
                              with the kernel's pair arithmetic (A&S erfc,
-                             softcore, LJ clip), excluded pairs included
-                             (pme_rest subtracts them again);
-  make_cell_direct_space_fn  the energy of method "cells_pme": exact erfc,
-                             excluded and 1-4 pairs subtracted with the
-                             same arithmetic; differentiable, one
-                             checkpointed tile per shift under autograd.
+                             softcore, LJ clip);
+  make_cell_direct_space_fn  the energy of method "cells_pme": exact erfc;
+                             differentiable, one checkpointed tile per
+                             shift under autograd.
+Both leave out the excluded and 1-4 pairs, looked up by the two sites'
+indices in the topology's exclusion table (ops/exclusions.py).
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..constants import COULOMB_CONST
 from .direct_force import LJ_CLIP, SOFTCORE_ALPHA, erfc_approx
+from .exclusions import Exclusions
 from .nonbonded import lorentz_berthelot, pair_lj_coulomb
 from .pbc import minimum_image
 
@@ -136,13 +137,15 @@ def _roll(a, shift):
                       dims=(0, 1, 2))
 
 
-def make_xla_direct_force_fn(top, cfg, box_extent, x0=None):
+def make_xla_direct_force_fn(top, cfg, box_extent, x0=None, *,
+                             excl: Exclusions):
     """The "window" backend: direct(x, box, couple, beta) ->
     (F [N, 3], e_lj, e_c, overflow), binning x at every call. Same per-pair
-    arithmetic as the cell-grid kernel (A&S erfc, softcore, LJ clip), so
-    the exclusion subtraction of pme_rest cancels; forces accumulate
-    center-side per shift, energies are half sums. `direct.plan` holds
-    (nc, capacity, shifts). The energies are differentiable."""
+    arithmetic as the cell-grid kernel (A&S erfc, softcore, LJ clip),
+    without the pairs of `excl` (the topology's exclusion table); forces
+    accumulate center-side per shift, energies are half sums.
+    `direct.plan` holds (nc, capacity, shifts). The energies are
+    differentiable."""
     cutoff = max(cfg.lj_cutoff, cfg.coulomb_cutoff)
     nc, cap, shifts_np = plan_cells(
         box_extent, cutoff, top.n_atoms_real, cfg.cell_capacity_factor,
@@ -151,14 +154,16 @@ def make_xla_direct_force_fn(top, cfg, box_extent, x0=None):
     rc2 = cutoff * cutoff
     n = top.n_atoms
 
-    def tile(pos4, q4, s4, e4, c4, m4, box, couple, beta, shift,
+    def tile(pos4, q4, s4, e4, c4, m4, id4, box, couple, beta, shift,
              want_force):
         pos_n = _roll(pos4, shift)
         dxv = minimum_image(pos4[..., :, None, :] - pos_n[..., None, :, :],
                             box)
         r2 = torch.sum(dxv * dxv, dim=-1)             # [nx, ny, nz, C, C]
         ok = ((m4[..., :, None] > 0) & (_roll(m4, shift)[..., None, :] > 0)
-              & (r2 < rc2) & (r2 > 1e-9))
+              & (r2 < rc2) & (r2 > 1e-9)
+              & ~excl.excluded(id4[..., :, None],
+                               _roll(id4, shift)[..., None, :]))
         r2s = torch.clamp_min(r2, 1e-4)
         inv_r2 = 1.0 / r2s
         sig = 0.5 * (s4[..., :, None] + _roll(s4, shift)[..., None, :])
@@ -198,13 +203,14 @@ def make_xla_direct_force_fn(top, cfg, box_extent, x0=None):
         grid, overflow = bin_atoms(x, box, top.atom_mask, nc, cap)
         gi, valid, pos4, q4, s4, e4, c4 = _grid_props(x, top, grid, nc, cap)
         m4 = valid.to(x.dtype).reshape(q4.shape)
+        id4 = gi.reshape(q4.shape)
         e_lj = torch.zeros((), dtype=x.dtype, device=x.device)
         e_c = torch.zeros_like(e_lj)
         f4 = torch.zeros_like(pos4)
         grad = torch.is_grad_enabled() and (x.requires_grad
                                             or box.requires_grad)
         for shift in shifts:
-            args = (pos4, q4, s4, e4, c4, m4, box, couple, beta, shift,
+            args = (pos4, q4, s4, e4, c4, m4, id4, box, couple, beta, shift,
                     want_force)
             if grad:
                 el, ec, f = checkpoint(tile, *args, use_reentrant=False)
@@ -229,18 +235,18 @@ def make_xla_direct_force_fn(top, cfg, box_extent, x0=None):
     return direct
 
 
-def make_cell_direct_space_fn(top, cfg, box_extent, x0=None):
+def make_cell_direct_space_fn(top, cfg, box_extent, x0=None, *,
+                              excl: Exclusions):
     """direct(x, box, couple, ewald_beta) -> (E_lj, E_coul, overflow) over
-    the cell grid with exact erfc (pair_lj_coulomb), with the excluded and
-    1-4 pairs subtracted by the same arithmetic, so the returned sums hold
-    none of them. `overflow` counts atoms dropped from the binning; nonzero
-    means the energies are wrong and the capacity must grow."""
+    the cell grid with exact erfc (pair_lj_coulomb), without the excluded
+    and 1-4 pairs of `excl` (the topology's exclusion table). `overflow`
+    counts atoms dropped from the binning; nonzero means the energies are
+    wrong and the capacity must grow."""
     cutoff = max(cfg.lj_cutoff, cfg.coulomb_cutoff)
     nc, cap, shifts_np = plan_cells(
         box_extent, cutoff, top.n_atoms_real, cfg.cell_capacity_factor,
         x0=x0)
     shifts = [tuple(int(v) for v in s) for s in shifts_np]
-    cm = top.couple_mask
 
     def pair_block_energy(r2, qi, qj, si, sj, ei, ej, cmi, cmj, couple,
                           ewald_beta, valid):
@@ -262,7 +268,8 @@ def make_cell_direct_space_fn(top, cfg, box_extent, x0=None):
         r2 = torch.sum(dxv * dxv, dim=-1)
         idn = _roll(id4, shift)
         ok = ((id4[..., :, None] >= 0) & (idn[..., None, :] >= 0)
-              & (id4[..., :, None] != idn[..., None, :]))
+              & (id4[..., :, None] != idn[..., None, :])
+              & ~excl.excluded(id4[..., :, None], idn[..., None, :]))
         return pair_block_energy(
             r2, q4[..., :, None], _roll(q4, shift)[..., None, :],
             s4[..., :, None], _roll(s4, shift)[..., None, :],
@@ -286,28 +293,8 @@ def make_cell_direct_space_fn(top, cfg, box_extent, x0=None):
                       else tile(*args))
             e_lj = e_lj + el
             e_c = e_c + ec
-        e_lj, e_c = 0.5 * e_lj, 0.5 * e_c          # each pair visited twice
-
-        charges = (top.charges * top.atom_mask).to(x.dtype)
-
-        def sub_pairs(idx, mask):
-            i, j = idx[:, 0], idx[:, 1]
-            dxv = minimum_image(x[i] - x[j], box)
-            r2 = torch.sum(dxv * dxv, dim=-1)
-            sig, eps = lorentz_berthelot(top.lj_sigma[i], top.lj_sigma[j],
-                                         top.lj_eps[i], top.lj_eps[j])
-            is_alch = cm[i] + cm[j] - 2.0 * cm[i] * cm[j]
-            cpl = 1.0 - is_alch * (1.0 - couple)
-            el, ec = pair_lj_coulomb(
-                r2, charges[i] * charges[j], sig, eps, cpl,
-                ewald_beta=ewald_beta, cutoff=cfg.lj_cutoff,
-                lj_switch_start=cfg.lj_switch_start,
-                coulomb_cutoff=cfg.coulomb_cutoff)
-            return torch.sum(el * mask), torch.sum(ec * mask)
-
-        el_x, ec_x = sub_pairs(top.excl_idx, top.excl_mask)
-        el_4, ec_4 = sub_pairs(top.pair14_idx, top.pair14_mask)
-        return e_lj - el_x - el_4, e_c - ec_x - ec_4, overflow
+        # each pair visited twice
+        return 0.5 * e_lj, 0.5 * e_c, overflow
 
     direct.plan = (nc, cap, shifts_np)
     return direct

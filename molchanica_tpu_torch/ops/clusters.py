@@ -7,7 +7,10 @@ refined by the 8 x 8 atom distances against rc + skin). A force
 evaluation gathers each cluster's M neighbour clusters and runs dense
 [8, M x 8] pair tiles, so the pair count tracks the true neighbour count.
 The per-pair arithmetic is the cell-grid kernel's (A&S erfc, softcore LJ,
-the LJ clip), so the exclusion subtraction of pme_rest cancels.
+the LJ clip); excluded and 1-4 pairs are left out: the rebuild flags the
+list entries whose two clusters hold such a pair (one byte per entry), and
+the force looks the pairs of a flagged entry up in the topology's exclusion
+table (ops/exclusions.py) by their sites.
 
 The force runs as the hand-written CUDA kernel csrc/cluster_force.cu for
 CUDA tensors (`cluster_force_cuda`, one launch for every replica) and as
@@ -37,6 +40,7 @@ from torch.func import vmap
 from .. import tracing
 from ..constants import COULOMB_CONST
 from .direct_force import LJ_CLIP, SOFTCORE_ALPHA, erfc_approx
+from .exclusions import Exclusions
 from .pbc import minimum_image
 
 CL = 8  # atoms per cluster
@@ -84,11 +88,14 @@ def _morton(ci, cj, ck):
     return spread(ci) | (spread(cj) << 1) | (spread(ck) << 2)
 
 
-def make_cluster_rebuild_fn(plan: ClusterPlan, top):
+def make_cluster_rebuild_fn(plan: ClusterPlan, top, excl: Exclusions):
     """rebuild(x, box) -> (order [N] int64, nbr [NC, M] int64 (-1 pad),
-    overflow int64): order is the atom of each sorted slot (padding atoms
-    sort last and fill the trailing clusters); overflow is how far the
-    longest row exceeds M (0 when the list holds)."""
+    flags [NC, M] uint8, overflow int64): order is the atom of each sorted
+    slot (padding atoms sort last and fill the trailing clusters);
+    flags[c, k] is 1 where cluster c and cluster nbr[c, k] hold a pair of
+    `excl` (the topology's exclusion table), 0 elsewhere and on padding;
+    overflow is how far the longest row exceeds M (0 when the list
+    holds)."""
     ncl = plan.n_clusters
     m_max = plan.m_neighbors
     fx, fy, fz = plan.fine_cells
@@ -98,6 +105,10 @@ def make_cluster_rebuild_fn(plan: ClusterPlan, top):
     n_blk = max(1, -(-ncl // 160))
     blk = -(-ncl // n_blk)
     pad_c = blk * n_blk - ncl
+    # each excluded pair from both of its atoms' clusters: [2, 2P] sites
+    ep = excl.pairs.to(atom_mask.device)
+    pair_sites = torch.stack([torch.cat([ep[:, 0], ep[:, 1]]),
+                              torch.cat([ep[:, 1], ep[:, 0]])])
 
     def rebuild(x, box):
         dev = x.device
@@ -166,11 +177,20 @@ def make_cluster_rebuild_fn(plan: ClusterPlan, top):
         in_range = iota[None, :m_eff] < counts[:, None]
         nbr = torch.where(in_range, nbr_sorted,
                           torch.full_like(nbr_sorted, -1))
+        # the cluster pairs that hold an excluded pair, read at the list's
+        # entries (every value written is True, so repeats agree)
+        cl = torch.argsort(order)[pair_sites] // CL        # [2, 2P]
+        held = torch.zeros(ncl * ncl, dtype=torch.bool, device=dev).index_put(
+            (cl[0] * ncl + cl[1],), torch.ones_like(cl[0], dtype=torch.bool))
+        flags = (torch.gather(held.reshape(ncl, ncl), 1, nbr_sorted)
+                 & in_range).to(torch.uint8)
         if m_eff < m_max:
-            nbr = torch.cat([nbr, torch.full((ncl, m_max - m_eff), -1,
-                                             dtype=nbr.dtype, device=dev)],
-                            dim=1)
-        return order, nbr, overflow
+            pad = (ncl, m_max - m_eff)
+            nbr = torch.cat([nbr, torch.full(pad, -1, dtype=nbr.dtype,
+                                             device=dev)], dim=1)
+            flags = torch.cat([flags, torch.zeros(pad, dtype=flags.dtype,
+                                                  device=dev)], dim=1)
+        return order, nbr, flags, overflow
 
     return rebuild
 
@@ -220,10 +240,13 @@ def _pair_math(d, r2, pi, pj, ok, couple, beta, mags):
             mag)
 
 
-def make_cluster_direct_plain(top, cfg, plan: ClusterPlan):
+def make_cluster_direct_plain(top, cfg, plan: ClusterPlan,
+                              excl: Exclusions):
     """The plain torch twin of the cluster force kernel: plain(x, box,
-    couple, beta, order, nbr, want_force=True, stats=None) -> (F [N, 3] or
-    None, e_lj, e_c, 0).
+    couple, beta, order, nbr, flags, want_force=True, stats=None) -> (F
+    [N, 3] or None, e_lj, e_c, 0), without the atom pairs of `excl` (the
+    topology's exclusion table), looked up in the entries that the
+    rebuild's `flags` mark.
 
     Every pair appears from both of its clusters (and the self-cluster
     tile holds each of its pairs twice), so the energies are half sums;
@@ -232,42 +255,42 @@ def make_cluster_direct_plain(top, cfg, plan: ClusterPlan):
     `stats` dict receives "f_abs" [N], each atom's sum over its pairs of
     2 r (|LJ term| + |Coulomb term|) of dV/dr2, and "e_abs_lj" /
     "e_abs_c", the half sums of |e_lj| and |e_c|: the float32 scales of
-    the output (the excluded pairs that pme_rest subtracts again are in
-    them).
+    the output.
 
     x may carry a leading replica axis ([R, N, 3], with order [R, N], nbr
-    [R, NC, M] and couple [R] or a scalar): the replicas then run under
-    torch.func.vmap, F is [R, N, 3] and the energies [R]; stats take one
-    replica."""
-    one = _plain_one(top, plan)
+    and flags [R, NC, M] and couple [R] or a scalar): the replicas then run
+    under torch.func.vmap, F is [R, N, 3] and the energies [R]; stats take
+    one replica."""
+    one = _plain_one(top, plan, excl)
     batched = {w: vmap(functools.partial(_drop_force, one, w),
-                       in_dims=(0, None, 0, None, 0, 0))
+                       in_dims=(0, None, 0, None, 0, 0, 0))
                for w in (False, True)}
 
-    def plain(x, box, couple, beta, order, nbr, want_force=True,
+    def plain(x, box, couple, beta, order, nbr, flags, want_force=True,
               stats=None):
         if x.dim() == 2:
-            return one(x, box, couple, beta, order, nbr, want_force, stats)
+            return one(x, box, couple, beta, order, nbr, flags, want_force,
+                       stats)
         if stats is not None:
             raise ValueError("cluster_direct_plain: stats take one replica")
         couple = torch.as_tensor(couple, dtype=x.dtype,
                                  device=x.device).expand(x.shape[0])
-        out = batched[want_force](x, box, couple, beta, order, nbr)
+        out = batched[want_force](x, box, couple, beta, order, nbr, flags)
         return (out if want_force else (None,) + out) + (
             torch.zeros(x.shape[:1], dtype=torch.int64, device=x.device),)
 
     return plain
 
 
-def _drop_force(one, want_force, x, box, couple, beta, order, nbr):
+def _drop_force(one, want_force, x, box, couple, beta, order, nbr, flags):
     """one replica's (F, e_lj, e_c), or (e_lj, e_c): vmap returns no
     None."""
-    f, e_lj, e_c, _ = one(x, box, couple, beta, order, nbr, want_force,
-                          None)
+    f, e_lj, e_c, _ = one(x, box, couple, beta, order, nbr, flags,
+                          want_force, None)
     return (f, e_lj, e_c) if want_force else (e_lj, e_c)
 
 
-def _plain_one(top, plan: ClusterPlan):
+def _plain_one(top, plan: ClusterPlan, excl: Exclusions):
     n = plan.n_atoms
     ncl = plan.n_clusters
     m_max = plan.m_neighbors
@@ -275,8 +298,9 @@ def _plain_one(top, plan: ClusterPlan):
     n_blk = 16
     blk = -(-ncl // n_blk)
     pad_c = blk * n_blk - ncl
+    excl = excl.to(top.atom_mask.device)
 
-    def one(x, box, couple, beta, order, nbr, want_force, stats):
+    def one(x, box, couple, beta, order, nbr, flags, want_force, stats):
         dev, dt = x.device, x.dtype
         xs = x[order]
         xs = xs - box * torch.floor(xs / box)
@@ -289,6 +313,13 @@ def _plain_one(top, plan: ClusterPlan):
                                           device=dev)])
         nbr_p = torch.cat([nbr, torch.full((pad_c, m_max), -1,
                                            dtype=nbr.dtype, device=dev)])
+        flags_p = torch.cat([flags, torch.zeros((pad_c, m_max),
+                                                dtype=flags.dtype,
+                                                device=dev)])
+        # each slot's site (-1 on the padding clusters: excluded from none)
+        site = order.reshape(ncl, CL)
+        site_p = torch.cat([site, torch.full((pad_c, CL), -1,
+                                             dtype=site.dtype, device=dev)])
         e_lj = torch.zeros((), dtype=dt, device=dev)
         e_c = torch.zeros_like(e_lj)
         f_parts, a_parts = [], []
@@ -304,9 +335,12 @@ def _plain_one(top, plan: ClusterPlan):
             d = minimum_image(
                 xi[:, None, :, None, :] - xj[:, :, None, :, :], box)
             r2 = torch.sum(d * d, dim=-1)              # [blk, M, CLi, CLj]
+            ex = excl.excluded(site_p[s:s + blk, None, :, None],
+                               site[nbc][:, :, None, :])
             ok = ((r2 < rc2) & (r2 > 1e-9) & nb_ok[:, :, None, None]
                   & (pi[:, None, :, None, 4] > 0)
-                  & (pj[:, :, None, :, 4] > 0))
+                  & (pj[:, :, None, :, 4] > 0)
+                  & ~((flags_p[s:s + blk, :, None, None] > 0) & ex))
             coeff, el, ec, mag = _pair_math(d, r2, pi, pj, ok, couple,
                                             beta, stats is not None)
             e_lj = e_lj + torch.sum(el)
@@ -345,30 +379,34 @@ def direct_rows(top):
                        dim=1).contiguous()
 
 
-def make_cluster_direct_force_fn(top, cfg, plan: ClusterPlan):
-    """direct(x, box, couple, beta, order, nbr, want_force=True,
-    stats=None) -> (F [N, 3] or None, e_lj, e_c, 0): MdSim's cluster force.
+def make_cluster_direct_force_fn(top, cfg, plan: ClusterPlan,
+                                 excl: Exclusions):
+    """direct(x, box, couple, beta, order, nbr, flags, want_force=True,
+    stats=None) -> (F [N, 3] or None, e_lj, e_c, 0): MdSim's cluster force,
+    without the atom pairs of `excl` (the topology's exclusion table) in
+    the entries that the rebuild's `flags` mark.
 
     CUDA tensors launch the hand-written kernel (csrc/cluster_force.cu,
     `cluster_force_cuda`), one launch whatever the replica axis; CPU
     tensors take the plain twin, `direct.plain` (make_cluster_direct_plain),
     which callers that need a differentiable energy or `stats` call by
     name on either device. Both take a leading replica axis on x, order,
-    nbr and couple (F [R, N, 3], energies [R])."""
-    plain = make_cluster_direct_plain(top, cfg, plan)
+    nbr, flags and couple (F [R, N, 3], energies [R])."""
+    plain = make_cluster_direct_plain(top, cfg, plan, excl)
     rc2 = float(plan.cutoff) ** 2
     rows = direct_rows(top)
     zero = torch.zeros((), dtype=torch.int64, device=rows.device)
 
-    def direct(x, box, couple, beta, order, nbr, want_force=True,
+    def direct(x, box, couple, beta, order, nbr, flags, want_force=True,
                stats=None):
         if x.device.type != "cuda":
-            return plain(x, box, couple, beta, order, nbr, want_force,
+            return plain(x, box, couple, beta, order, nbr, flags, want_force,
                          stats)
         if stats is not None:
             raise ValueError("cluster force: stats come from the plain "
                              "twin (direct.plain)")
         f, e = cluster_force_cuda(plan, x, box, couple, beta, order, nbr,
+                                  flags, excl.to(x.device),
                                   rows.to(x.device, x.dtype), rc2,
                                   want_force)
         return f, e[..., 0], e[..., 1], zero
@@ -378,10 +416,12 @@ def make_cluster_direct_force_fn(top, cfg, plan: ClusterPlan):
 
 
 def cluster_force_cuda(plan: ClusterPlan, x, box, couple, beta, order, nbr,
-                       rows, rc2, want_force=True):
+                       flags, excl: Exclusions, rows, rc2, want_force=True):
     """Launch csrc/cluster_force.cu on the current stream: (F [N, 3] or
     None, e [2] = the half sums (e_lj, e_c)), in x's dtype (float32 or
-    float64). With a leading replica axis (x [R, N, 3], order [R, N], nbr
+    float64), without the atom pairs of `excl` (an ops/exclusions.py table
+    on the card) in the entries that `flags` (the rebuild's) mark.
+    With a leading replica axis (x [R, N, 3], order [R, N], nbr and flags
     [R, NC, M], couple [R] or a scalar) one launch runs the R replicas and
     returns [R, N, 3] and [R, 2]; x's replicas may lie any stride apart
     (its rows contiguous). rows is `direct_rows(top)` in x's dtype;
@@ -402,23 +442,30 @@ def cluster_force_cuda(plan: ClusterPlan, x, box, couple, beta, order, nbr,
                          for v in (couple, beta, box))
     if len(lead) > 1 or x.shape != lead + (n, 3) \
             or order.shape != lead + (n,) or nbr.shape != lead + (ncl, m) \
-            or rows.shape != (n, 5) or not 0 < R < 65536 \
+            or flags.shape != nbr.shape or rows.shape != (n, 5) \
+            or excl.bits.shape[0] != n or not 0 < R < 65536 \
             or couple.shape not in ((), (R,)) or beta.shape != () \
             or box.shape != (3,):
         raise ValueError(
             f"cluster_force: shapes x {tuple(x.shape)}, order "
-            f"{tuple(order.shape)}, nbr {tuple(nbr.shape)}, rows "
+            f"{tuple(order.shape)}, nbr {tuple(nbr.shape)}, flags "
+            f"{tuple(flags.shape)}, exclusion table "
+            f"{tuple(excl.bits.shape)}, rows "
             f"{tuple(rows.shape)}, couple {tuple(couple.shape)}, beta "
             f"{tuple(beta.shape)}, box {tuple(box.shape)}: want [R,] [{n}, "
-            f"3], [R,] [{n}], [R,] [{ncl}, {m}], [{n}, 5], [R] or a "
-            f"scalar, a scalar, [3]; R < 65,536")
+            f"3], [R,] [{n}], [R,] [{ncl}, {m}] twice, [{n}, words], "
+            f"[{n}, 5], [R] or a scalar, a scalar, [3]; R < 65,536")
     tensors = (("x", x, dt), ("rows", rows, dt), ("order", order,
-               torch.int64), ("nbr", nbr, torch.int64))
+               torch.int64), ("nbr", nbr, torch.int64),
+               ("flags", flags, torch.uint8),
+               ("exclusion table", excl.bits, torch.int32))
     if dt not in (torch.float32, torch.float64) \
             or any(t.dtype != want for _, t, want in tensors):
         raise ValueError(f"cluster_force: dtypes x {dt}, rows {rows.dtype},"
-                         f" order {order.dtype}, nbr {nbr.dtype}: want "
-                         f"float32 or float64, the same, int64, int64")
+                         f" order {order.dtype}, nbr {nbr.dtype}, flags "
+                         f"{flags.dtype}, exclusion table "
+                         f"{excl.bits.dtype}: want float32 or float64, the "
+                         f"same, int64, int64, uint8, int32")
     tensors += (("couple", couple, dt), ("beta", beta, dt),
                 ("box", box, dt))
     # x's replicas may lie apart (vmap's outputs pad them), its rows not
@@ -444,8 +491,9 @@ def cluster_force_cuda(plan: ClusterPlan, x, box, couple, beta, order, nbr,
         int(dt == torch.float64), int(want_force), R, n, ncl, m,
         int(couple.dim() == 1), x.stride(0) if lead else 3 * n,
         ctypes.c_double(rc2), ptr(x), ptr(order),
-        ptr(nbr), ptr(rows), ptr(couple), ptr(beta), ptr(box), ptr(f),
-        ptr(e_part), ptr(e),
+        ptr(nbr), ptr(flags), ptr(excl.bits), excl.words, ptr(rows),
+        ptr(couple), ptr(beta), ptr(box),
+        ptr(f), ptr(e_part), ptr(e),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"cluster_force kernel launch failed: CUDA error "

@@ -1,6 +1,5 @@
 """Cell-grid direct-space LJ + Ewald Coulomb for MdSim: the plan, the
-rebuild, the pair-list twin used for exclusion subtraction, and the kernel
-(port of molchanica_tpu.ops.pallas.direct_force).
+rebuild and the kernel (port of molchanica_tpu.ops.pallas.direct_force).
 
 Atoms are binned into a dense grid of nc cells per axis (side >= cutoff,
 capacity C slots per cell). A ghost halo one cell wide replicates the
@@ -17,9 +16,10 @@ kernel in csrc/direct_force.cu for CUDA tensors, `direct_force_plain`
 (the same function in plain torch) for CPU tensors;
 `direct_force_work` is the plain model of that kernel's schedule. Each
 pair is evaluated from both of its cells; forces are center-side only and
-the energies half-summed per cell. Excluded and 1-4 pairs are evaluated too
-and subtracted by `pairlist_kernel_formula_energy`, with the same
-arithmetic, in plain torch.
+the energies half-summed per cell. Excluded and 1-4 pairs are left out
+inside the pair loop: each row carries its site's index, which the
+topology's exclusion table (ops/exclusions.py) is looked up with. The
+reference adds those pairs and subtracts them again in its rest energy.
 """
 from __future__ import annotations
 
@@ -33,12 +33,13 @@ import torch
 from .. import tracing
 from ..constants import COULOMB_CONST
 from .colpair import _sorted_keys
+from .exclusions import Exclusions
 
 SOFTCORE_ALPHA = 0.5
 
-# Per-pair LJ energy clip (kcal/mol), applied identically in the kernel,
-# the plain version and the exclusion-subtraction pair lists; the LJ force
-# is zero where the raw energy reaches it.
+# Per-pair LJ energy clip (kcal/mol), applied identically in the kernels
+# and their plain versions, for overlaps of pairs that are not excluded;
+# the LJ force is zero where the raw energy reaches it.
 LJ_CLIP = 1.0e7
 
 # Abramowitz-Stegun 7.1.26 erfc coefficients
@@ -117,13 +118,20 @@ def make_rebuild_fn(plan: WindowPlan, atom_mask):
     """rebuild(x, box) -> (slot_atom [n_cells C] int64 (-1 empty),
     inv_slot [N] int64, overflow int64). A stable sort by cell; atoms past
     a cell's capacity go to the sink slot n_cells C, which is cut off, and
-    count as overflow (their inv_slot is 0)."""
+    count as overflow (their inv_slot is 0). Each call runs inside the
+    tracing span "k2.rebuild" and counts once in the counter "k2_rebuild"
+    (under torch.func.vmap, once for all replicas)."""
     ncx, ncy, ncz = plan.nc
     cap = plan.capacity
     n_cells = plan.n_cells
     n = plan.n_atoms
 
     def rebuild(x, box):
+        tracing.count("k2_rebuild")
+        with tracing.span("k2.rebuild"):
+            return _rebuild(x, box)
+
+    def _rebuild(x, box):
         dev = x.device
         u = x / box
         u = u - torch.floor(u)
@@ -247,15 +255,22 @@ def _pair_terms(c, sl, couple, beta, mags):
     return dlj + dc, e_lj, e_c, (dx, dy, dz), mag
 
 
+def _site(col):
+    """The site index a row's column 7 carries (its index + 1; 0 on an empty
+    slot, which reads -1)."""
+    return col.to(torch.int64) - 1
+
+
 def direct_force_plain(center, ghost, starts, couple, beta, rc2,
-                       stats=None):
+                       stats=None, *, excl: Exclusions):
     """Plain torch version of the kernel: out [n_cells C, 4], forces in
     columns 0-2 and the cell's half-summed (e_lj, e_c) in column 3, rows 0
     and 1 of the cell. Slab by slab and chunked over cells, the distance
     test runs on dense [cells, C, 3 C] tiles and the pair math on the
-    pairs that pass it; sums go back by index_add_, the cell energies in
-    float64 as the kernel sums them (a cell's sum mixes excluded pairs of
-    up to LJ_CLIP with thousands of small terms).
+    pairs that pass it and that `excl` (an ops/exclusions.py table,
+    looked up with the sites that the rows' column 7 carries) does not
+    exclude; sums go back by index_add_, the cell
+    energies in float64 as the kernel sums them.
 
     A `stats` dict, if given, receives the scales `direct_force_parity`
     divides errors by: "pairs", the count of evaluated (valid) pairs;
@@ -264,7 +279,7 @@ def direct_force_plain(center, ghost, starts, couple, beta, rc2,
     each cell's half-summed LJ + Coulomb energy; "e_abs" [n_cells], its
     half sum of |e_lj| + |e_c|; "e_abs_lj" and "e_abs_c", the half sums of
     |e_lj| and of |e_c| over all pairs (the float32 scale of the two energy
-    totals, which carry excluded pairs that the caller subtracts again).
+    totals).
     With the key "keys" in `stats` it also receives "keys", the sorted
     int64 keys center slot * G + ghost slot of the evaluated pairs.
 
@@ -276,7 +291,7 @@ def direct_force_plain(center, ghost, starts, couple, beta, rc2,
             raise ValueError("direct_force_plain: stats take one replica")
         cpl = torch.as_tensor(couple).expand(center.shape[0])
         return torch.stack([
-            direct_force_plain(c, g, starts, cp, beta, rc2)
+            direct_force_plain(c, g, starts, cp, beta, rc2, excl=excl)
             for c, g, cp in zip(center, ghost, cpl)])
     S = center.shape[0]
     n_cells, n_slab = starts.shape
@@ -308,6 +323,9 @@ def direct_force_plain(center, ghost, starts, couple, beta, rc2,
             valid = ((r2 < rc2) & (r2 > 1e-9) & (crow[:, :, 7:8] > 0.5)
                      & (g[7][:, None, :] > 0.5))
             ci, ii, li = torch.nonzero(valid, as_tuple=True)
+            keep = ~excl.excluded(_site(crow[ci, ii, 7]),
+                                  _site(g[7, ci, li]))
+            ci, ii, li = ci[keep], ii[keep], li[keep]
             cv = crow[ci, ii]                                      # [P, 8]
             sv = g[:, ci, li]                                      # [8, P]
             coeff, elj, ec, d, mag = _pair_terms(
@@ -339,7 +357,8 @@ def direct_force_plain(center, ghost, starts, couple, beta, rc2,
     return out
 
 
-def direct_force_work(center, ghost, starts, rc2, n_sm=132, keys=False):
+def direct_force_work(center, ghost, starts, rc2, n_sm=132, keys=False, *,
+                      excl: Exclusions):
     """Plain model of csrc/direct_force.cu's schedule on the kernel's inputs
     (those of `direct_force_plain`). The grid is n_cells x C / PART_I
     blocks of WORK_WARPS warps. A cell's real sites, in slot order, are cut
@@ -351,14 +370,16 @@ def direct_force_work(center, ghost, starts, rc2, n_sm=132, keys=False):
     warp k mod WORK_WARPS; and per chunk queues the pairs with r^2 < rc^2
     and r^2 > 1e-9 i by i, running the math on 32-lane batches whenever
     the queue could not take another i (more than QCAP - 32 pairs) and
-    after the last i. Blocks are dealt to `n_sm` SMs round-robin in launch
-    order (blockIdx.x fastest) for the per-SM load.
+    after the last i; a queued pair that `excl` excludes takes its lane of
+    a batch and adds nothing. Blocks are dealt to `n_sm` SMs round-robin
+    in launch order (blockIdx.x fastest) for the per-SM load.
 
     Returns a dict of counts: parts (per cell), blocks, active_blocks,
     warps_per_sm (active warps), sites (center sites over the parts),
     max_part_sites, min_part_sites, scanned (neighbourhood slots read), real
     (real sites among them), staged (kept by the prefilter), tested (i, j
-    tests), chunks, pairs, batches, lane_use (pairs per batch lane),
+    tests), chunks, queued, pairs (queued and not excluded), batches,
+    lane_use (pairs per batch lane),
     max_warp_chunks, sm_batches_max and sm_batches_mean (math batches per
     SM); with `keys`, "keys", the sorted pair keys as
     direct_force_plain's stats give them."""
@@ -373,8 +394,8 @@ def direct_force_work(center, ghost, starts, rc2, n_sm=132, keys=False):
     scan = (starts[:, :, None]
             + torch.arange(3 * cap, device=dev)).reshape(n_cells, -1)
     tot = dict(sites=0, scanned=0, real=0, staged=0, tested=0, chunks=0,
-               pairs=0, batches=0, max_warp_chunks=0, max_part_sites=0,
-               min_part_sites=PART_I)
+               queued=0, pairs=0, batches=0, max_warp_chunks=0,
+               max_part_sites=0, min_part_sites=PART_I)
     block_batches, key_parts = [], []
     for p in range(n_cells):
         rows = center[p * cap:(p + 1) * cap]
@@ -396,6 +417,8 @@ def direct_force_work(center, ghost, starts, rc2, n_sm=132, keys=False):
             dz = ci[:, 2:3] - sj[2][None, :]
             r2 = dx * dx + dy * dy + dz * dz
             hit = (r2 < rc2) & (r2 > 1e-9)
+            kept = hit & ~excl.excluded(_site(ci[:, 7])[:, None],
+                                        _site(sj[7])[None, :])
             n_ch = -(-n_j // 32)
             per = torch.zeros((n_i, n_ch * 32), dtype=torch.int64,
                               device=dev)
@@ -417,13 +440,14 @@ def direct_force_work(center, ghost, starts, rc2, n_sm=132, keys=False):
             tot["staged"] += n_j
             tot["tested"] += n_i * n_j
             tot["chunks"] += n_ch
-            tot["pairs"] += int(hit.sum())
+            tot["queued"] += int(hit.sum())
+            tot["pairs"] += int(kept.sum())
             tot["batches"] += batches
             tot["max_warp_chunks"] = max(tot["max_warp_chunks"],
                                          -(-n_ch // WORK_WARPS))
             block_batches.append((q * n_cells + p, batches))
             if keys:
-                ii, jj = torch.nonzero(hit, as_tuple=True)
+                ii, jj = torch.nonzero(kept, as_tuple=True)
                 key_parts.append((p * cap + own[ii]) * G + gj[jj])
     sm = torch.zeros(n_sm, dtype=torch.int64)
     for k, (_, b) in enumerate(sorted(block_batches)):
@@ -444,9 +468,10 @@ def direct_force_parity(f, e_cell, f_ref, stats):
     """(force ratio, energy ratio) of a kernel's output against the plain
     version's: max over slots of max_axis|dF| / f_abs, and max over cells
     of |dE| / e_abs (`stats` from direct_force_plain on the same inputs;
-    f, f_ref [S, 3]; e_cell [n_cells] the kernel's cell energies). Excluded
-    solute pairs carry ~1e5 kcal/mol/A, so a ratio to max|F| alone would
-    let an error of a whole slot force through elsewhere."""
+    f, f_ref [S, 3]; e_cell [n_cells] the kernel's cell energies). Site
+    forces span orders of magnitude (a solute atom's, a water O's), so a
+    ratio to max|F| alone would let through an error that is large for a
+    site with a small force."""
     err = (f - f_ref).abs().amax(dim=1)
     tiny = torch.finfo(f.dtype).tiny
     rel_f = float((err / torch.clamp_min(stats["f_abs"], tiny)).max())
@@ -481,17 +506,19 @@ class DirectForce:
     None takes it at this call, i.e. wraps x into [0, box) as the
     reference does on every call. The two agree until an atom crosses the
     box face after a rebuild: the reference then wraps it to the far side
-    while its slot stays in the near cell, so it loses every kernel pair,
-    excluded pairs included, which the rest energy still subtracts. With
-    the shift fixed at the rebuild it stays a little outside [0, box) in
-    its cell until the next rebuild. The wrapper then builds the center rows
-    [n_cells C, 8] (x, y, z, q, sigma, eps, couple_mask, valid; empty slots
-    read a zero row) and the ghost array [8, G] (property-major, shifted by
-    whole boxes), then runs the hand-written CUDA kernel
-    (csrc/direct_force.cu) for CUDA tensors or `direct_force_plain` for
-    CPU tensors. The tracing counter "direct_force" counts the kernel's
-    launches across instances. Overflow is detected at rebuild; the
-    returned one is 0.
+    while its slot stays in the near cell, so it loses every kernel pair.
+    With the shift fixed at the rebuild it stays a little outside [0, box)
+    in its cell until the next rebuild. The wrapper then builds the center
+    rows [n_cells C, 8] (x, y, z, q, sigma, eps, couple_mask and, for
+    valid, the site's index + 1; empty slots read a zero row) and the ghost
+    array [8, G] (property-major, shifted by whole boxes), then runs the
+    hand-written CUDA kernel (csrc/direct_force.cu) for CUDA tensors or
+    `direct_force_plain` for CPU tensors, both leaving out the pairs of
+    `excl` (the topology's ops/exclusions.py table). The tracing counter
+    "direct_force" counts the kernel's launches across instances; the
+    spans "k2.inputs" and "k2.kernel" mark the tables and the launch with
+    its energy sum. Overflow is detected at rebuild; the returned one is
+    0.
 
     Every argument but box and beta may carry a leading replica axis (x
     [R, N, 3], couple [R], slot_atom [R, n_cells C], inv_slot and shift
@@ -500,13 +527,20 @@ class DirectForce:
     launch counts once, whatever R.
     """
 
-    def __init__(self, top, plan: WindowPlan):
+    def __init__(self, top, plan: WindowPlan, excl: Exclusions):
         self.plan = plan
         self.rc2 = float(plan.cutoff) ** 2
         dev = top.charges.device
         self.atom_mask = top.atom_mask
+        self.excl = excl
+        n = top.atom_mask.shape[0]
+        if n >= 2 ** 24:
+            raise ValueError(f"DirectForce: {n} sites; a float32 row holds "
+                             f"site indices below 2^24")
+        site = (torch.arange(n, device=dev) + 1).to(top.atom_mask.dtype)
         props = torch.stack([top.charges * top.atom_mask, top.lj_sigma,
-                             top.lj_eps, top.couple_mask, top.atom_mask],
+                             top.lj_eps, top.couple_mask,
+                             top.atom_mask * site],
                             dim=1).to(torch.float32)
         self.props = props                                   # [N, 5]
         src, shift = ghost_tables(plan)
@@ -541,15 +575,18 @@ class DirectForce:
         tensors)."""
         if center.device.type == "cpu":
             return direct_force_plain(center, ghost, self.starts, couple,
-                                      beta, self.rc2)
-        out = direct_force_cuda(self.plan, center, ghost, couple, beta)
+                                      beta, self.rc2, excl=self.excl)
+        out = direct_force_cuda(self.plan, center, ghost, couple, beta,
+                                excl=self.excl)
         tracing.count("direct_force")
         return out
 
     def __call__(self, x, box, couple, beta, slot_atom, inv_slot,
                  shift=None):
-        center, ghost = self.inputs(x, box, slot_atom, shift)
-        out = self.kernel(center, ghost, couple, beta)
+        with tracing.span("k2.inputs"):
+            center, ghost = self.inputs(x, box, slot_atom, shift)
+        with tracing.span("k2.kernel"):
+            out = self.kernel(center, ghost, couple, beta)
         f_atoms = torch.gather(out[..., :3], -2, inv_slot[..., None].expand(
             inv_slot.shape + (3,))) * self.atom_mask[:, None]
         e = cell_energies(out, self.plan.n_cells)
@@ -558,13 +595,15 @@ class DirectForce:
 
 
 def direct_force_cuda(plan: WindowPlan, center, ghost, couple, beta,
-                      counts=None):
+                      counts=None, *, excl: Exclusions):
     """Launch csrc/direct_force.cu on the current stream: out [n_cells C,
-    4], laid out as direct_force_plain's. With a leading replica axis
+    4], laid out as direct_force_plain's, without the pairs `excl` (an
+    ops/exclusions.py table on the card) excludes. With a leading replica axis
     (center [R, n_cells C, 8], ghost [R, 8, G], couple and beta scalars or
     [R]) one launch runs the R grids and returns [R, n_cells C, 4].
     `counts`, an int64 tensor on the card with one element per replica,
-    gets the kernel's count of the pairs that passed its cutoff test added.
+    gets the kernel's count of the pairs that passed its cutoff and
+    exclusion tests added.
     With couple and beta on the card the launch copies nothing from the
     host, so it can be captured in a CUDA graph; a Python float is copied
     at every call. Counts no launch; `DirectForce` does."""
@@ -602,6 +641,11 @@ def direct_force_cuda(plan: WindowPlan, center, ghost, couple, beta,
                                or counts.dtype != torch.int64
                                or not counts.is_contiguous()):
         raise ValueError(f"direct_force: counts must be {R} int64 on {dev}")
+    bits = excl.bits
+    if bits.device != dev or bits.dtype != torch.int32 \
+            or not bits.is_contiguous():
+        raise ValueError(f"direct_force: the exclusion table must be a "
+                         f"contiguous int32 tensor on {dev}")
     lib = load_library()
     out = torch.empty(lead + (S, 4), dtype=torch.float32, device=dev)
     scratch = torch.empty((R * plan.n_cells * (cap // PART_I) * 2,),
@@ -612,46 +656,9 @@ def direct_force_cuda(plan: WindowPlan, center, ghost, couple, beta,
         ctypes.c_float(float(plan.cutoff) ** 2), ptr(center), ptr(ghost),
         ptr(params), ptr(out), ptr(scratch),
         ctypes.c_void_p(None) if counts is None else ptr(counts),
+        ptr(bits), int(bits.shape[1]),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"direct_force kernel launch failed: CUDA error "
                            f"{err}")
     return out
-
-
-# ---------------------------------------------------------------------------
-# Matching pair-list formula (exclusion / 1-4 subtraction)
-# ---------------------------------------------------------------------------
-
-def pairlist_kernel_formula_energy(x, box, top, idx, mask, couple, beta, rc2,
-                                   lj_scale=1.0, coulomb_scale=1.0):
-    """(e_lj, e_c) over an explicit pair list with the kernel's arithmetic
-    (softcore LJ, the LJ clip, A&S erfc), so subtracting it cancels the
-    kernel's contribution of excluded pairs to float32 roundoff.
-    Differentiable."""
-    from .pbc import minimum_image
-
-    i, j = idx[:, 0], idx[:, 1]
-    d = minimum_image(x[i] - x[j], box)
-    r2 = torch.sum(d * d, dim=-1)
-    in_range = (r2 < rc2) & (mask > 0)
-    r2s = torch.clamp_min(r2, 1e-4)
-    inv_r2 = 1.0 / r2s
-    sig = 0.5 * (top.lj_sigma[i] + top.lj_sigma[j])
-    eps4 = 4.0 * torch.sqrt(top.lj_eps[i] * top.lj_eps[j])
-    cm = top.couple_mask
-    is_alch = cm[i] + cm[j] - 2.0 * cm[i] * cm[j]
-    cpl = 1.0 - is_alch * (1.0 - couple)
-    a_sc = SOFTCORE_ALPHA * (1.0 - cpl)
-    s2 = sig * sig * inv_r2
-    s6 = s2 * s2 * s2
-    lj_inv = s6 / (a_sc * s6 + 1.0)
-    e_lj = torch.clamp(eps4 * cpl * (lj_inv * lj_inv - lj_inv),
-                       -LJ_CLIP, LJ_CLIP)
-    r = torch.sqrt(r2s)
-    erfc_v, _ = erfc_approx(beta * r)
-    q = top.charges * top.atom_mask
-    e_c = COULOMB_CONST * q[i] * q[j] * cpl * erfc_v / r
-    zero = torch.zeros_like(e_lj)
-    return (torch.sum(torch.where(in_range, e_lj, zero)) * lj_scale,
-            torch.sum(torch.where(in_range, e_c, zero)) * coulomb_scale)

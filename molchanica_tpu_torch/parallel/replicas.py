@@ -34,7 +34,9 @@ tracing is off): `farm.call` (a call of step), `farm.step`, `farm.draws`,
 `direct.rebuild`, `farm.force` (each force evaluation) with `direct.force`,
 `pme` (and `pme.backward` in ops/pme3.py), `rest.energy` and `rest.grad`,
 `farm.integrate`, `constraints` and `farm.overflow_read` (the host's
-synchronize); benchmark/spans.py reads them.
+synchronize); on K2 also `k2.rebuild` inside `direct.rebuild`, and
+`k2.inputs` and `k2.kernel` inside `direct.force` (ops/direct_force.py);
+benchmark/spans.py reads them.
 """
 from __future__ import annotations
 
@@ -104,8 +106,8 @@ class _Batched:
             rebuild1 = vmap(sim._rebuild, in_dims=(0, None))
 
             def rebuild(xv, box):
-                order, nbr, ovf = rebuild1(xv, box)
-                return (order, nbr), ovf
+                order, nbr, flags, ovf = rebuild1(xv, box)
+                return (order, nbr, flags), ovf
 
             def direct(xv, box, c, nbr, want_force):
                 # the replica axis natively: one kernel launch on the card,

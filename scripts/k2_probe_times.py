@@ -77,7 +77,9 @@ def _smoke():
 
 
 def k2_inputs(torch, np):
-    """(plan, direct, center, ghost) of config 3's cell grid at eq25k.npz."""
+    """(plan, direct, center, ghost, kw) of config 3's cell grid at
+    eq25k.npz; kw holds the K2 calls' exclusion table on the card where the
+    tree has one (a tree before it adds every pair)."""
     from molchanica_tpu_torch.md.energy import apply_virtual_sites
     from molchanica_tpu_torch.ops.direct_force import (DirectForce,
                                                        image_shift,
@@ -96,13 +98,20 @@ def k2_inputs(torch, np):
                        asys.topology.n_atoms_real, asys.topology.n_atoms,
                        x0=xv.numpy())
     sa, _, ovf = make_rebuild_fn(plan, asys.topology.atom_mask)(xv, box)
-    direct = DirectForce(asys.topology, plan)
+    try:
+        from molchanica_tpu_torch.ops.exclusions import exclusion_table
+    except ImportError:
+        direct, kw = DirectForce(asys.topology, plan), {}
+    else:
+        direct = DirectForce(asys.topology, plan,
+                             exclusion_table(asys.topology))
+        kw = {"excl": direct.excl.to("cuda")}
     center, ghost = direct.inputs(xv, box, sa, image_shift(xv, box))
     assert int(ovf) == 0
-    return plan, direct, center.cuda(), ghost.cuda()
+    return plan, direct, center.cuda(), ghost.cuda(), kw
 
 
-def k2_launcher(plan, center, ghost, couple, beta, torch):
+def k2_launcher(plan, center, ghost, couple, beta, kw, torch):
     """fn() launching the tree's K2 once on the current stream; the old C
     entry (13 arguments) takes no scratch and no counter."""
     from molchanica_tpu_torch.cuda_build import load_library
@@ -111,7 +120,8 @@ def k2_launcher(plan, center, ghost, couple, beta, torch):
     lib = load_library()
     dev = center.device
     if len(lib.direct_force_launch.argtypes) != 13:
-        return lambda: DF.direct_force_cuda(plan, center, ghost, couple, beta)
+        return lambda: DF.direct_force_cuda(plan, center, ghost, couple, beta,
+                                            **kw)
     params = torch.stack([couple.reshape(()).float(),
                           beta.reshape(()).float()])
     gx, gy, gz = plan.ghost_dims
@@ -132,7 +142,7 @@ def k2_launcher(plan, center, ghost, couple, beta, torch):
     return launch
 
 
-def phase_times(plan, center, ghost, couple, beta, ref, stats, smoke,
+def phase_times(plan, center, ghost, couple, beta, kw, ref, stats, smoke,
                 torch):
     """{variant: graph ms} of PHASES on one input, with ptxas's registers
     and spills per variant; the right variants checked against `ref`."""
@@ -141,7 +151,8 @@ def phase_times(plan, center, ghost, couple, beta, ref, stats, smoke,
     from molchanica_tpu_torch import cuda_build
     from molchanica_tpu_torch.ops import direct_force as DF
 
-    launch = lambda: DF.direct_force_cuda(plan, center, ghost, couple, beta)
+    launch = lambda: DF.direct_force_cuda(plan, center, ghost, couple, beta,
+                                          **kw)
     out, regs = {}, {}
     load_library = cuda_build.load_library
     with tempfile.TemporaryDirectory() as tmp:
@@ -190,14 +201,14 @@ def main():
             if "registers" in ln or "spill" in ln]
     res = dict(root=os.path.relpath(root, HERE), card=card, ptxas=regs)
 
-    plan, direct, center, ghost = k2_inputs(torch, np)
+    plan, direct, center, ghost, kw = k2_inputs(torch, np)
     couple = torch.ones((), dtype=torch.float32, device="cuda")
     beta = torch.tensor(0.3123, device="cuda")
-    launch = k2_launcher(plan, center, ghost, couple, beta, torch)
+    launch = k2_launcher(plan, center, ghost, couple, beta, kw, torch)
     out = launch()
     stats = {}
     ref = DF.direct_force_plain(center, ghost, direct.starts.cuda(), couple,
-                                beta, direct.rc2, stats=stats)
+                                beta, direct.rc2, stats=stats, **kw)
     torch.cuda.synchronize()
     e_k = DF.cell_energies(out, plan.n_cells)
     rel_f, rel_e = DF.direct_force_parity(out[:, :3], e_k.sum(1), ref[:, :3],
@@ -219,8 +230,8 @@ def main():
     if args.phases:
         if root != HERE:
             raise SystemExit("--phases times this checkout's kernel only")
-        ms, regs = phase_times(plan, center, ghost, couple, beta, ref, stats,
-                               smoke, torch)
+        ms, regs = phase_times(plan, center, ghost, couple, beta, kw, ref,
+                               stats, smoke, torch)
         res["k2_phases"] = dict(ms=ms, ptxas=regs)
         print("[phases] " + ", ".join(f"{k} {v:.5f} ms"
                                         for k, v in ms.items())

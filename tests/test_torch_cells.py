@@ -31,6 +31,7 @@ from molchanica_tpu.topology import make_topology as j_make_topology
 from molchanica_tpu_torch.md.config import MdConfig, MdOverrides
 from molchanica_tpu_torch.md.engine import compute_energy_snapshot
 from molchanica_tpu_torch.ops import cells as TC
+from molchanica_tpu_torch.ops.exclusions import exclusion_table
 from molchanica_tpu_torch.topology import (STATIC_FIELDS, TENSOR_FIELDS,
                                            make_topology,
                                            topology_from_numpy)
@@ -121,7 +122,7 @@ def test_window_direct_force(random_box, name):
         jt, JCfg(lj_cutoff=8.0, coulomb_cutoff=8.0, dtype=name), box, x0=x)
     win_t = TC.make_xla_direct_force_fn(
         tt, MdConfig(lj_cutoff=8.0, coulomb_cutoff=8.0, dtype=name), box,
-        x0=x)
+        x0=x, excl=exclusion_table(tt))
     f_j, elj_j, ec_j, ovf_j = jax.jit(lambda x_: win_j(
         x_, jnp.asarray(box, jdt), jnp.asarray(1.0, jdt), BETA))(
         jnp.asarray(x, jdt))
@@ -164,7 +165,7 @@ def _cell_energy(tops, asys, name):
         jt, JCfg(lj_cutoff=6.0, coulomb_cutoff=6.0, dtype=name), box, x0=x)
     d_t = TC.make_cell_direct_space_fn(
         tt, MdConfig(lj_cutoff=6.0, coulomb_cutoff=6.0, dtype=name), box,
-        x0=x)
+        x0=x, excl=exclusion_table(tt))
     bj = jnp.asarray(box, jdt)
     one_j = jnp.asarray(1.0, jdt)
     el_j, ec_j, ovf_j = jax.jit(lambda x_: d_j(x_, bj, one_j, BETA))(

@@ -25,6 +25,7 @@ import torch
 from molchanica_tpu_torch import tracing
 from molchanica_tpu_torch.md.energy import apply_virtual_sites
 from molchanica_tpu_torch.ops import clusters as TCl
+from molchanica_tpu_torch.ops.exclusions import exclusion_table
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RC = 9.0
@@ -74,13 +75,15 @@ def _case(duplex, dtype, n_rep):
                                        device="cuda") * top.dof_mask[:, None]
         xs.append(apply_virtual_sites(x, top))
     x = torch.stack(xs)
-    rebuild = TCl.make_cluster_rebuild_fn(plan, top)
+    rebuild = TCl.make_cluster_rebuild_fn(plan, top, exclusion_table(top))
     lists = [rebuild(xr, box) for xr in x]
-    assert all(int(ovf) == 0 for _, _, ovf in lists)
-    order = torch.stack([o for o, _, _ in lists])
-    nbr = torch.stack([nb for _, nb, _ in lists])
-    direct = TCl.make_cluster_direct_force_fn(top, None, plan)
-    return top, plan, direct, x, box, order, nbr
+    assert all(int(ovf) == 0 for _, _, _, ovf in lists)
+    order = torch.stack([o for o, _, _, _ in lists])
+    nbr = torch.stack([nb for _, nb, _, _ in lists])
+    flags = torch.stack([m for _, _, m, _ in lists])
+    direct = TCl.make_cluster_direct_force_fn(top, None, plan,
+                                              exclusion_table(top))
+    return top, plan, direct, x, box, order, nbr, flags
 
 
 @pytest.mark.card
@@ -88,17 +91,18 @@ def _case(duplex, dtype, n_rep):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n_rep", [1, 4])
 def test_kernel_matches_plain_twin(duplex, n_rep, dtype, couple):
-    top, plan, direct, x, box, order, nbr = _case(duplex, dtype, n_rep)
+    top, plan, direct, x, box, order, nbr, flags = _case(duplex, dtype,
+                                                         n_rep)
     beta = torch.tensor(BETA, dtype=dtype, device="cuda")
     c = torch.full((n_rep,), couple, dtype=dtype, device="cuda")
     if n_rep == 1:
-        x, order, nbr, c = x[0], order[0], nbr[0], c[0]
+        x, order, nbr, flags, c = x[0], order[0], nbr[0], flags[0], c[0]
     tol_f, tol_e = TOL[dtype]
     with torch.no_grad():
         k0 = tracing.counters("cluster_force").get("cluster_force", 0)
-        f, e_lj, e_c, _ = direct(x, box, c, beta, order, nbr)
-        f2, e_lj2, e_c2, _ = direct(x, box, c, beta, order, nbr)
-        f3, e_lj3, e_c3, _ = direct(x, box, c, beta, order, nbr,
+        f, e_lj, e_c, _ = direct(x, box, c, beta, order, nbr, flags)
+        f2, e_lj2, e_c2, _ = direct(x, box, c, beta, order, nbr, flags)
+        f3, e_lj3, e_c3, _ = direct(x, box, c, beta, order, nbr, flags,
                                     want_force=False)
         torch.cuda.synchronize()
         k1 = tracing.counters("cluster_force").get("cluster_force", 0)
@@ -112,15 +116,15 @@ def test_kernel_matches_plain_twin(duplex, n_rep, dtype, couple):
             xp = torch.zeros((n_rep, plan.n_atoms + 1, 3), dtype=dtype,
                              device="cuda")[:, :plan.n_atoms]
             xp.copy_(x)
-            fp, e_ljp, _, _ = direct(xp, box, c, beta, order, nbr)
+            fp, e_ljp, _, _ = direct(xp, box, c, beta, order, nbr, flags)
             assert torch.equal(fp, f) and torch.equal(e_ljp, e_lj)
         if n_rep == 1:
-            x, order, nbr, c, f = x[None], order[None], nbr[None], c[None], \
-                f[None]
+            x, order, nbr, flags, c, f = x[None], order[None], nbr[None], \
+                flags[None], c[None], f[None]
         for r in range(n_rep):
             stats = {}
             f_p, lj_p, c_p, _ = direct.plain(x[r], box, c[r], beta, order[r],
-                                             nbr[r], stats=stats)
+                                             nbr[r], flags[r], stats=stats)
             f_r = f[r]
             d = (f_r - f_p).abs().amax(1)
             ratio = float((d / (stats["f_abs"] + 1e-30)).max())
@@ -141,20 +145,22 @@ def test_kernel_matches_plain_twin(duplex, n_rep, dtype, couple):
 
 @pytest.mark.card
 def test_kernel_refuses_grad_and_stats(duplex):
-    _, _, direct, x, box, order, nbr = _case(duplex, torch.float32, 1)
+    _, _, direct, x, box, order, nbr, flags = _case(duplex, torch.float32,
+                                                    1)
     beta = torch.tensor(BETA, device="cuda")
     c = torch.tensor(1.0, device="cuda")
     xg = x[0].clone().requires_grad_(True)
     with torch.enable_grad(), pytest.raises(ValueError, match="gradient"):
-        direct(xg, box, c, beta, order[0], nbr[0])
+        direct(xg, box, c, beta, order[0], nbr[0], flags[0])
     cg = c.clone().requires_grad_(True)
     with torch.enable_grad(), pytest.raises(ValueError, match="gradient"):
-        direct(x[0], box, cg, beta, order[0], nbr[0], want_force=False)
+        direct(x[0], box, cg, beta, order[0], nbr[0], flags[0],
+               want_force=False)
     with pytest.raises(ValueError, match="plain"):
-        direct(x[0], box, c, beta, order[0], nbr[0], stats={})
+        direct(x[0], box, c, beta, order[0], nbr[0], flags[0], stats={})
     # the plain twin on the card keeps its gradient
     with torch.enable_grad():
         _, e_lj, e_c, _ = direct.plain(xg, box, c, beta, order[0], nbr[0],
-                                       want_force=False)
+                                       flags[0], want_force=False)
         (g,) = torch.autograd.grad(e_lj + e_c, xg)
     assert torch.isfinite(g).all()

@@ -25,6 +25,7 @@ from molchanica_tpu.topology import make_topology as j_make_topology
 from molchanica_tpu_torch import tracing
 from molchanica_tpu_torch.md.config import MdConfig
 from molchanica_tpu_torch.ops import clusters as TCl
+from molchanica_tpu_torch.ops.exclusions import Exclusions, exclusion_table
 from molchanica_tpu_torch.topology import make_topology
 
 torch.set_num_threads(1)
@@ -96,7 +97,9 @@ def test_rebuild_order_and_list(system, name):
     plan_t = TCl.plan_clusters(np.asarray(bj), RC, n, 768)
     order_j, nbr_j, ovf_j = jax.jit(JCl.make_cluster_rebuild_fn(
         plan_j, jt))(xj, bj)
-    order_t, nbr_t, ovf_t = TCl.make_cluster_rebuild_fn(plan_t, tt)(xt, bt)
+    order_t, nbr_t, flags_t, ovf_t = TCl.make_cluster_rebuild_fn(
+        plan_t, tt, exclusion_table(tt))(xt, bt)
+    assert not flags_t.any()          # the random sites exclude no pair
     np.testing.assert_array_equal(order_t.numpy(), np.asarray(order_j))
     np.testing.assert_array_equal(nbr_t.numpy(), np.asarray(nbr_j))
     assert int(ovf_t) == int(ovf_j) == 0
@@ -115,7 +118,8 @@ def test_overflow_with_m_forced_small(system, name):
                                                    768), m_neighbors=32)
     plan_t = TCl.ClusterPlan(**dataclasses.asdict(plan_j))
     _, nbr_j, ovf_j = jax.jit(JCl.make_cluster_rebuild_fn(plan_j, jt))(xj, bj)
-    _, nbr_t, ovf_t = TCl.make_cluster_rebuild_fn(plan_t, tt)(xt, bt)
+    _, nbr_t, _, ovf_t = TCl.make_cluster_rebuild_fn(
+        plan_t, tt, exclusion_table(tt))(xt, bt)
     assert int(ovf_t) == int(ovf_j) > 0
     np.testing.assert_array_equal(nbr_t.numpy(), np.asarray(nbr_j))
 
@@ -129,14 +133,16 @@ def test_direct_force(system, name):
     plan_t = TCl.plan_clusters(np.asarray(bj), RC, 700, 768)
     order_j, nbr_j, _ = jax.jit(JCl.make_cluster_rebuild_fn(plan_j, jt))(
         xj, bj)
-    order_t, nbr_t, _ = TCl.make_cluster_rebuild_fn(plan_t, tt)(xt, bt)
+    order_t, nbr_t, flags_t, _ = TCl.make_cluster_rebuild_fn(
+        plan_t, tt, exclusion_table(tt))(xt, bt)
     dj = JCl.make_cluster_direct_force_fn(jt, cfg_j, plan_j)
     one_j = jnp.asarray(1.0, xj.dtype)
     f_j, elj_j, ec_j = jax.jit(lambda x_, o_, n_: dj(
         x_, bj, one_j, BETA, o_, n_)[:3])(xj, order_j, nbr_j)
-    dt = TCl.make_cluster_direct_force_fn(tt, cfg_t, plan_t)
+    dt = TCl.make_cluster_direct_force_fn(
+        tt, cfg_t, plan_t, exclusion_table(tt))
     f_t, elj_t, ec_t, ovf = dt(xt, bt, torch.tensor(1.0, dtype=xt.dtype),
-                               BETA, order_t, nbr_t)
+                               BETA, order_t, nbr_t, flags_t)
     f_j = np.asarray(f_j)
     assert f_t.dtype == xt.dtype and int(ovf) == 0
     assert np.abs(f_t.numpy() - f_j).max() <= tol * np.abs(f_j).max()
@@ -154,8 +160,10 @@ def test_stale_list_and_window(system):
     cfg_j = JCfg(lj_cutoff=RC, coulomb_cutoff=RC, dtype="float64")
     cfg_t = MdConfig(lj_cutoff=RC, coulomb_cutoff=RC, dtype="float64")
     plan = TCl.plan_clusters(np.asarray(bj), RC, 700, 768)
-    order, nbr, _ = TCl.make_cluster_rebuild_fn(plan, tt)(xt, bt)
-    direct = TCl.make_cluster_direct_force_fn(tt, cfg_t, plan)
+    order, nbr, flags, _ = TCl.make_cluster_rebuild_fn(
+        plan, tt, exclusion_table(tt))(xt, bt)
+    direct = TCl.make_cluster_direct_force_fn(
+        tt, cfg_t, plan, exclusion_table(tt))
     one = torch.tensor(1.0, dtype=torch.float64)
     rng = np.random.default_rng(1)
     x = np.asarray(xj)
@@ -164,7 +172,8 @@ def test_stale_list_and_window(system):
         win = j_window(jt, cfg_j, np.asarray(bj), x0=xx)
         f_w, elj_w, ec_w, _ = jax.jit(lambda x_: win(
             x_, bj, jnp.asarray(1.0), BETA))(jnp.asarray(xx))
-        f, elj, ec, _ = direct(torch.tensor(xx), bt, one, BETA, order, nbr)
+        f, elj, ec, _ = direct(torch.tensor(xx), bt, one, BETA, order, nbr,
+                               flags)
         np.testing.assert_allclose(float(elj), float(elj_w), rtol=1e-8)
         np.testing.assert_allclose(float(ec), float(ec_w), rtol=1e-8)
         np.testing.assert_allclose(f.numpy(), np.asarray(f_w), rtol=1e-6,
@@ -178,13 +187,15 @@ def test_energy_gradient_is_the_force(system):
     _, tt, _, _, xt, bt, _ = _inputs(system, "float64")
     cfg = MdConfig(lj_cutoff=RC, coulomb_cutoff=RC, dtype="float64")
     plan = TCl.plan_clusters(bt.numpy(), RC, 700, 768)
-    order, nbr, _ = TCl.make_cluster_rebuild_fn(plan, tt)(xt, bt)
-    direct = TCl.make_cluster_direct_force_fn(tt, cfg, plan)
+    order, nbr, flags, _ = TCl.make_cluster_rebuild_fn(
+        plan, tt, exclusion_table(tt))(xt, bt)
+    direct = TCl.make_cluster_direct_force_fn(
+        tt, cfg, plan, exclusion_table(tt))
     one = torch.tensor(1.0, dtype=torch.float64)
     stats = {}
-    f, _, _, _ = direct(xt, bt, one, BETA, order, nbr, stats=stats)
+    f, _, _, _ = direct(xt, bt, one, BETA, order, nbr, flags, stats=stats)
     xg = xt.clone().requires_grad_(True)
-    f_none, e_lj, e_c, _ = direct(xg, bt, one, BETA, order, nbr,
+    f_none, e_lj, e_c, _ = direct(xg, bt, one, BETA, order, nbr, flags,
                                   want_force=False)
     assert f_none is None
     (g,) = torch.autograd.grad(e_lj + e_c, xg)
@@ -200,15 +211,16 @@ def _replicas(system, name, m_scale=1.0):
     _, tt, _, _, xt, bt, _ = _inputs(system, name)
     cfg = MdConfig(lj_cutoff=RC, coulomb_cutoff=RC, dtype=name)
     plan = TCl.plan_clusters(bt.numpy(), RC, 700, 768, m_scale=m_scale)
-    rebuild = TCl.make_cluster_rebuild_fn(plan, tt)
+    rebuild = TCl.make_cluster_rebuild_fn(plan, tt, exclusion_table(tt))
     rng = np.random.default_rng(3)
     xs = torch.stack([xt + torch.tensor(rng.normal(0, 0.1, xt.shape),
                                         dtype=xt.dtype) for _ in range(3)])
     lists = [rebuild(x, bt) for x in xs]
-    order = torch.stack([o for o, _, _ in lists])
-    nbr = torch.stack([nb for _, nb, _ in lists])
-    assert all(int(ovf) == 0 for _, _, ovf in lists)
-    return tt, cfg, plan, xs, bt, order, nbr
+    order = torch.stack([o for o, _, _, _ in lists])
+    nbr = torch.stack([nb for _, nb, _, _ in lists])
+    flags = torch.stack([m for _, _, m, _ in lists])
+    assert all(int(ovf) == 0 for _, _, _, ovf in lists)
+    return tt, cfg, plan, xs, bt, order, nbr, flags
 
 
 @pytest.mark.parametrize("want_force", [True, False])
@@ -217,17 +229,19 @@ def test_plain_replica_axis_equals_single_calls(system, name, want_force):
     """The plain twin with a leading replica axis (as the farm calls it on
     the CPU) gives each replica's single call, and the CPU dispatch is the
     plain twin."""
-    tt, cfg, plan, xs, bt, order, nbr = _replicas(system, name)
-    direct = TCl.make_cluster_direct_force_fn(tt, cfg, plan)
+    tt, cfg, plan, xs, bt, order, nbr, flags = _replicas(system, name)
+    direct = TCl.make_cluster_direct_force_fn(
+        tt, cfg, plan, exclusion_table(tt))
     couples = torch.tensor([1.0, 0.5, 0.25], dtype=xs.dtype)
     f_b, elj_b, ec_b, ovf_b = direct.plain(xs, bt, couples, BETA, order,
-                                           nbr, want_force)
-    got = direct(xs, bt, couples, BETA, order, nbr, want_force)
+                                           nbr, flags, want_force)
+    got = direct(xs, bt, couples, BETA, order, nbr, flags, want_force)
     assert elj_b.shape == ec_b.shape == ovf_b.shape == (3,)
     assert (f_b is None) == (not want_force)
     for r in range(3):
         f1, elj1, ec1, _ = direct.plain(xs[r], bt, couples[r], BETA,
-                                        order[r], nbr[r], want_force)
+                                        order[r], nbr[r], flags[r],
+                                        want_force)
         if want_force:
             scale = float(f1.abs().max())
             assert float((f_b[r] - f1).abs().max()) <= 1e-12 * scale
@@ -236,7 +250,7 @@ def test_plain_replica_axis_equals_single_calls(system, name, want_force):
             assert abs(float(e_b[r] - e1)) <= 1e-12 * abs(float(e1))
             assert float(e_d[r]) == float(e_b[r])
     with pytest.raises(ValueError, match="one replica"):
-        direct.plain(xs, bt, couples, BETA, order, nbr, stats={})
+        direct.plain(xs, bt, couples, BETA, order, nbr, flags, stats={})
 
 
 @pytest.mark.parametrize("m_scale", [1.0, 1.5])
@@ -246,9 +260,10 @@ def test_rebuild_rows_are_compacted(system, name, m_scale):
     padding (the kernel stops a row at its first group of unlisted
     slots), at the planned and at the replanned width, on the stored and
     the jittered positions; rows do have padding."""
-    _, _, plan, xs, bt, order, nbr = _replicas(system, name, m_scale)
+    _, _, plan, xs, bt, order, nbr, _ = _replicas(system, name, m_scale)
     _, tt, _, _, xt, _, _ = _inputs(system, name)
-    nbrs = [TCl.make_cluster_rebuild_fn(plan, tt)(xt, bt)[1], *nbr]
+    nbrs = [TCl.make_cluster_rebuild_fn(plan, tt, exclusion_table(tt))(
+        xt, bt)[1], *nbr]
     for nb in nbrs:
         listed = nb >= 0
         assert not (listed[:, 1:] & ~listed[:, :-1]).any()
@@ -265,10 +280,12 @@ def test_cluster_force_cuda_checks(system):
     _, tt, _, _, xt, bt, _ = _inputs(system, "float32")
     cfg = MdConfig(lj_cutoff=RC, coulomb_cutoff=RC, dtype="float32")
     plan = TCl.plan_clusters(bt.numpy(), RC, 700, 768)
-    order, nbr, _ = TCl.make_cluster_rebuild_fn(plan, tt)(xt, bt)
+    order, nbr, flags, _ = TCl.make_cluster_rebuild_fn(
+        plan, tt, exclusion_table(tt))(xt, bt)
     rows = TCl.direct_rows(tt)
+    excl = exclusion_table(tt)
     args = dict(x=xt, box=bt, couple=1.0, beta=BETA, order=order, nbr=nbr,
-                rows=rows, rc2=RC * RC)
+                flags=flags, excl=excl, rows=rows, rc2=RC * RC)
 
     def call(**kw):
         TCl.cluster_force_cuda(plan, **{**args, **kw})
@@ -277,18 +294,23 @@ def test_cluster_force_cuda_checks(system):
     with pytest.raises(ValueError, match="CUDA device"):
         call()
     for kw in (dict(x=xt[:-8]), dict(nbr=nbr[:, :-1]), dict(order=order[1:]),
+               dict(flags=flags[:, :-1]),
+               dict(excl=Exclusions.empty(700)),
                dict(x=xt[None].repeat(2, 1, 1)), dict(rows=rows[:, :4]),
                dict(couple=torch.ones(3)), dict(box=bt[:2]),
                dict(x=xt[None, None])):
         with pytest.raises(ValueError, match="shapes"):
             call(**kw)
     for kw in (dict(order=order.int()), dict(nbr=nbr.int()),
+               dict(flags=flags.int()),
+               dict(excl=Exclusions(excl.bits.long(), excl.pairs)),
                dict(rows=rows.double()),
                dict(x=xt.half(), rows=rows.half())):
         with pytest.raises(ValueError, match="dtypes"):
             call(**kw)
     for kw in (dict(x=xt.T.contiguous().T),
                dict(nbr=nbr.T.contiguous().T),
+               dict(flags=flags.T.contiguous().T),
                dict(rows=rows.T.contiguous().T)):
         with pytest.raises(ValueError, match="contiguous"):
             call(**kw)
@@ -297,9 +319,11 @@ def test_cluster_force_cuda_checks(system):
     xr.copy_(xt.expand(2, -1, -1))
     with pytest.raises(ValueError, match="CUDA device"):
         call(x=xr, order=order.expand(2, -1).contiguous(),
-             nbr=nbr.expand(2, -1, -1).contiguous())
-    direct = TCl.make_cluster_direct_force_fn(tt, cfg, plan)
-    f, _, _, _ = direct(xt, bt, torch.tensor(1.0), BETA, order, nbr)
+             nbr=nbr.expand(2, -1, -1).contiguous(),
+             flags=flags.expand(2, -1, -1).contiguous())
+    direct = TCl.make_cluster_direct_force_fn(
+        tt, cfg, plan, exclusion_table(tt))
+    f, _, _, _ = direct(xt, bt, torch.tensor(1.0), BETA, order, nbr, flags)
     assert f.shape == (768, 3)
     assert tracing.counters("cluster_force") == before
 
@@ -320,8 +344,8 @@ def test_engine_takes_the_plain_twin_by_name(system, monkeypatch):
     calls = {"direct": 0, "plain": 0}
     real = E.make_cluster_direct_force_fn
 
-    def counted(top, cfg, plan):
-        d = real(top, cfg, plan)
+    def counted(top, cfg, plan, excl):
+        d = real(top, cfg, plan, excl)
 
         def direct(*a, **kw):
             calls["direct"] += 1

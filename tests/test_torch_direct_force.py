@@ -5,12 +5,21 @@ on the solvated 8-residue polyalanine in a 24 A OPC box at a 6 A cutoff
 interpret mode; its center rows, ghost array and per-slot output are
 captured at its pallas_call.
 
+The port leaves the excluded and 1-4 pairs out of the direct space
+(ops/exclusions.py); the reference adds them and subtracts them again in
+its rest energy with `pairlist_kernel_formula_energy`. So the port's plain
+kernel with an empty exclusion table (`Exclusions.empty`) is held to the
+Pallas kernel, and with the topology's table to the Pallas kernel less the
+reference's own subtraction (its energies and, by jax.grad, its forces).
+
 Tolerances: the plan, the rebuild (slot_atom, inv_slot, overflow) and the
-wrapped center rows exactly equal; the ghost array within 1e-6 A; the
-plain kernel against the Pallas kernel per slot and per cell under 1e-5
-of the plain version's own term-magnitude scales (`direct_force_parity`),
-total energies rel 1e-5; the pair-list formula's energies rel 1e-5 and
-its autograd forces within 1e-5 of the largest.
+wrapped center rows exactly equal (column 7 carries the site index + 1
+where the reference's carries 1); the ghost array within 1e-6 A; the
+plain kernel against the Pallas kernel (less its subtraction) per slot and
+per cell under 1e-5 of the plain version's term-magnitude scales without
+the table (`direct_force_parity`: the reference's float32 residue of the
+excluded pairs' ~1e5 kcal/mol/A lies at that scale), total energies rel
+1e-5 of the same scales.
 """
 import dataclasses
 
@@ -26,6 +35,9 @@ from molchanica_tpu.md.config import MdConfig as JCfg
 from molchanica_tpu.systems.bench_systems import build_solvated_protein
 from molchanica_tpu_torch import tracing
 from molchanica_tpu_torch.ops import direct_force as T
+from molchanica_tpu_torch.ops.exclusions import (Exclusions,
+                                                 exclusion_pairs,
+                                                 exclusion_table)
 from molchanica_tpu_torch.topology import (STATIC_FIELDS, TENSOR_FIELDS,
                                            topology_from_numpy)
 
@@ -144,11 +156,16 @@ def test_inputs_equal(system, monkeypatch, translated):
     j_center, j_ghost = cap.args[0], cap.args[1]
     sa = T.make_rebuild_fn(tplan, tt.atom_mask)(torch.tensor(x),
                                                 torch.tensor(box))[0]
-    direct = T.DirectForce(tt, tplan)
+    direct = T.DirectForce(tt, tplan, exclusion_table(tt))
     center, ghost = direct.inputs(torch.tensor(x), torch.tensor(box), sa)
-    np.testing.assert_array_equal(center.numpy(), j_center)
+    np.testing.assert_array_equal(center[:, :7].numpy(), j_center[:, :7])
+    valid = sa >= 0
+    np.testing.assert_array_equal(valid.numpy(), j_center[:, 7] > 0.5)
+    assert torch.equal(center[:, 7], torch.where(valid, sa + 1, 0).float())
     assert ghost.shape == j_ghost.shape == (8, 6 ** 3 * 128)
-    np.testing.assert_allclose(ghost.numpy(), j_ghost, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(ghost[:7].numpy(), j_ghost[:7], rtol=0,
+                               atol=1e-6)
+    np.testing.assert_array_equal(ghost[7].numpy() > 0.5, j_ghost[7] > 0.5)
     # every slab starts where the reference's slab offsets put it
     offs = cap.args[3][0]
     p = np.arange(tplan.n_cells)
@@ -158,16 +175,38 @@ def test_inputs_equal(system, monkeypatch, translated):
                                   base[:, None] + offs[None, :])
 
 
-def _plain(system, x, stats=None, beta=BETA):
+def _plain(system, x, stats=None, beta=BETA, masked=True):
+    """The plain kernel on the wrapper's inputs, with the topology's
+    exclusion table (masked) or an empty one."""
     _, tt, _, box, _, tplan = system
     sa, inv, _ = T.make_rebuild_fn(tplan, tt.atom_mask)(torch.tensor(x),
                                                        torch.tensor(box))
-    direct = T.DirectForce(tt, tplan)
+    direct = T.DirectForce(tt, tplan, exclusion_table(tt))
     center, ghost = direct.inputs(torch.tensor(x), torch.tensor(box), sa)
     out = T.direct_force_plain(center, ghost, direct.starts,
                                torch.tensor(1.0), beta, RC * RC,
-                               stats=stats)
+                               stats=stats,
+                               excl=direct.excl if masked
+                               else Exclusions.empty(tt.atom_mask.shape[0]))
     return out, center, ghost, direct, sa, inv
+
+
+def _reference_subtraction(jt, x, box, rc=RC):
+    """The reference's own subtraction of the excluded and 1-4 pairs from
+    its direct space: (e_lj, e_c, its force [N, 3]), in float32."""
+    def e(xx):
+        el = ec = 0.0
+        for which in ("excl", "pair14"):
+            a, b = DF.pairlist_kernel_formula_energy(
+                xx, jnp.asarray(box), jt, getattr(jt, f"{which}_idx"),
+                getattr(jt, f"{which}_mask"),
+                jnp.asarray(1.0, jnp.float32), BETA, rc * rc)
+            el, ec = el + a, ec + b
+        return el + ec, (el, ec)
+
+    (_, (el, ec)), g = jax.value_and_grad(e, has_aux=True)(
+        jnp.asarray(x, jnp.float32))
+    return float(el), float(ec), -torch.tensor(np.asarray(g, np.float32))
 
 
 @pytest.mark.parametrize("translated", [False, True])
@@ -178,8 +217,9 @@ def test_plain_kernel_matches_pallas(system, monkeypatch, translated):
         x[:jt.n_atoms_real] += box * SHIFT
     cap, F_ref, elj_ref, ec_ref = _reference_call(monkeypatch, jt, jplan, x,
                                                   box)
+    # with an empty table: every close pair, as the Pallas kernel
     stats = {}
-    out, _, _, direct, sa, inv = _plain(system, x, stats)
+    out, _, _, direct, sa, inv = _plain(system, x, stats, masked=False)
     out_ref = torch.tensor(cap.out)
     e_ref = T.cell_energies(out_ref, tplan.n_cells).sum(1)
     rel_f, rel_e = T.direct_force_parity(out[:, :3], T.cell_energies(
@@ -189,15 +229,29 @@ def test_plain_kernel_matches_pallas(system, monkeypatch, translated):
                                rtol=0, atol=1e-5 * float(
                                    stats["e_abs"].max()))
     assert stats["pairs"] > 100000
-    # the wrapper: atom forces and total energies
+    # with the table: the Pallas kernel less the reference's subtraction
+    el_x, ec_x, f_x = _reference_subtraction(jt, x, box)
+    masked = {}
+    out_m, _, _, _, _, _ = _plain(system, x, masked)
+    assert 0 < stats["pairs"] - masked["pairs"] <= 2 * len(
+        exclusion_pairs(tt))
+    real = sa >= 0
+    f_want = out_ref[:, :3].clone()
+    f_want[real] -= f_x[sa[real]]
+    err = (out_m[:, :3] - f_want).abs().amax(dim=1)
+    assert bool((err <= 1e-5 * stats["f_abs"]).all())
+    e_m = T.cell_energies(out_m, tplan.n_cells).sum(0)
+    assert abs(float(e_m[0]) - (elj_ref - el_x)) <= 1e-5 * stats["e_abs_lj"]
+    assert abs(float(e_m[1]) - (ec_ref - ec_x)) <= 1e-5 * stats["e_abs_c"]
+    # the wrapper: atom forces and total energies, with the table
     F, e_lj, e_c, ovf = direct(torch.tensor(x), torch.tensor(box),
                                torch.tensor(1.0), BETA, sa, inv)
     assert int(ovf) == 0
-    assert abs(float(e_lj) - elj_ref) <= 1e-5 * abs(elj_ref)
-    assert abs(float(e_c) - ec_ref) <= 1e-5 * abs(ec_ref)
+    assert abs(float(e_lj) - (elj_ref - el_x)) <= 1e-5 * stats["e_abs_lj"]
+    assert abs(float(e_c) - (ec_ref - ec_x)) <= 1e-5 * stats["e_abs_c"]
     scale = stats["f_abs"][inv] * tt.atom_mask
-    err = (F - torch.tensor(F_ref)).abs().amax(dim=1)
-    assert bool((err <= 1e-5 * scale).all())
+    err = (F - (torch.tensor(F_ref) - f_x * tt.atom_mask[:, None])).abs()
+    assert bool((err.amax(dim=1) <= 1e-5 * scale).all())
 
 
 def test_plain_float32_floor(system):
@@ -208,7 +262,7 @@ def test_plain_float32_floor(system):
     out, center, ghost, direct, _, _ = _plain(system, system[2], stats)
     out64 = T.direct_force_plain(center.double(), ghost.double(),
                                  direct.starts, torch.tensor(1.0).double(),
-                                 BETA, RC * RC)
+                                 BETA, RC * RC, excl=direct.excl)
     n_cells = direct.plan.n_cells
     rel_f, rel_e = T.direct_force_parity(
         out[:, :3].double(), T.cell_energies(out, n_cells).sum(1).double(),
@@ -217,16 +271,17 @@ def test_plain_float32_floor(system):
     del rel_e
     e64 = T.cell_energies(out64, n_cells).sum(1)
     de = (stats["e_cell"].double() - e64).abs() / stats["e_abs"].double()
-    # measured: 1.1e-6 per slot, 7.7e-7 per cell (cell sums in float64)
+    # measured: 4.9e-7 per slot, 1.3e-7 per cell (cell sums in float64;
+    # 1.1e-6 and 7.7e-7 while the excluded pairs were evaluated)
     assert rel_f < 3e-6 and float(de.max()) < 2e-6, (rel_f, float(de.max()))
 
 
 def test_parity_gate_catches_a_water_lj_error(system):
     """A 1e-3 error in water O's LJ well depth, which a limit of 1e-4 of
-    max|F| lets through (max|F| sits on excluded solute pairs), fails the
-    per-slot gate of 1e-5 by more than 10x. (The per-cell energy gate
-    does not see it: the cells' Coulomb and excluded-pair energies are far
-    larger than the water O-O LJ energy.)"""
+    max|F| lets through (0.0094 against max|F| of 162 kcal/mol/A, on the
+    solute), fails the per-slot gate of 1e-5 by more than 10x. (The
+    per-cell energy gate does not see it: the cells' Coulomb energies are
+    far larger than the water O-O LJ energy.)"""
     jt, tt, x, box, _, tplan = system
     stats = {}
     out, center, ghost, direct, _, _ = _plain(system, x, stats)
@@ -241,7 +296,8 @@ def test_parity_gate_catches_a_water_lj_error(system):
     bad_g = bad_c[direct.gsrc].T.contiguous()
     bad_g[:3] = ghost[:3]
     out_bad = T.direct_force_plain(bad_c, bad_g, direct.starts,
-                                   torch.tensor(1.0), BETA, RC * RC)
+                                   torch.tensor(1.0), BETA, RC * RC,
+                                   excl=direct.excl)
     f, f_bad = out[:, :3], out_bad[:, :3]
     assert float((f_bad - f).abs().max()) < 1e-4 * float(f.abs().max())
     rel_f, rel_e = T.direct_force_parity(
@@ -249,47 +305,21 @@ def test_parity_gate_catches_a_water_lj_error(system):
     assert rel_f > 1e-4, (rel_f, rel_e)
 
 
-@pytest.mark.parametrize("pairs", ["excl", "pair14"])
-def test_pairlist_kernel_formula_energy(system, pairs):
-    jt, tt, x, box, _, _ = system
-    rng = np.random.default_rng(2)
-    x = (x + rng.normal(0, 0.02, x.shape)).astype(np.float32)
-    rc2 = RC * RC
-    jidx, jmask = getattr(jt, f"{pairs}_idx"), getattr(jt, f"{pairs}_mask")
-
-    def jfn(xx):
-        el, ec = DF.pairlist_kernel_formula_energy(
-            xx, jnp.asarray(box), jt, jidx, jmask,
-            jnp.asarray(1.0, jnp.float32), BETA, rc2)
-        return el + ec, (el, ec)
-
-    (_, (el_r, ec_r)), g_r = jax.value_and_grad(jfn, has_aux=True)(
-        jnp.asarray(x))
-    xt = torch.tensor(x, requires_grad=True)
-    el, ec = T.pairlist_kernel_formula_energy(
-        xt, torch.tensor(box), tt, getattr(tt, f"{pairs}_idx"),
-        getattr(tt, f"{pairs}_mask"), torch.tensor(1.0), BETA, rc2)
-    (g,) = torch.autograd.grad(el + ec, xt)
-    for got, ref in ((el.detach(), el_r), (ec.detach(), ec_r)):
-        ref = float(np.float32(ref))
-        assert abs(float(got) - ref) <= 1e-5 * abs(ref)
-    g_r = np.asarray(g_r, np.float32)
-    assert np.abs(g.numpy() - g_r).max() <= 1e-5 * np.abs(g_r).max()
-
-
 def test_kernel_wrapper_checks(system):
     _, tt, _, _, _, tplan = system
+    excl = exclusion_table(tt)
     with pytest.raises(ValueError):
         T.direct_force_cuda(tplan, torch.zeros((100, 8)),
-                            torch.zeros((8, 100)), 1.0, BETA)
+                            torch.zeros((8, 100)), 1.0, BETA, excl=excl)
     big = dataclasses.replace(tplan, capacity=512)
     gx, gy, gz = big.ghost_dims
     with pytest.raises(ValueError):
         T.direct_force_cuda(big, torch.zeros((big.n_cells * 512, 8)),
-                            torch.zeros((8, gx * gy * gz * 512)), 1.0, BETA)
+                            torch.zeros((8, gx * gy * gz * 512)), 1.0, BETA,
+                            excl=excl)
     # CPU tensors take the plain version and count no launch
     before = tracing.counters("direct_force")
-    direct = T.DirectForce(tt, tplan)
+    direct = T.DirectForce(tt, tplan, exclusion_table(tt))
     center = torch.zeros((tplan.n_cells * tplan.capacity, 8))
     ghost = center[direct.gsrc].T.contiguous()
     out = direct.kernel(center, ghost, torch.tensor(1.0), BETA)
@@ -301,8 +331,9 @@ def test_crossing_atom_keeps_its_pairs(system, monkeypatch):
     """A water crosses the +x box face after the rebuild. With the images
     fixed at the rebuild (`image_shift`, as MdSim passes them) the kernel
     gives what a fresh rebuild gives; wrapped at the call (shift None) it
-    reproduces the reference, which loses the crossing sites' pairs,
-    excluded O-H and H-M pairs included (the rest energy still subtracts
+    loses the crossing sites' pairs, and the plain kernel without an
+    exclusion table on those inputs reproduces the reference, which loses
+    the excluded O-H and H-M pairs too (its rest energy still subtracts
     those). Cutoff 5.5 A on 6 A cells leaves a 0.5 A skin for the 0.2 A
     move."""
     jt, tt, x, box, _, _ = system
@@ -321,7 +352,7 @@ def test_crossing_atom_keeps_its_pairs(system, monkeypatch):
     tplan = T.plan_window(*args, x0=xa)
     jplan = DF.plan_window(*args, x0=xa)
     assert tplan.cell_side[0] - rc == pytest.approx(0.5)
-    direct = T.DirectForce(tt, tplan)
+    direct = T.DirectForce(tt, tplan, exclusion_table(tt))
     rebuild = T.make_rebuild_fn(tplan, tt.atom_mask)
     tb = torch.tensor(box)
     one = torch.tensor(1.0)
@@ -338,14 +369,21 @@ def test_crossing_atom_keeps_its_pairs(system, monkeypatch):
     _, elj_r, ec_r, _ = fn(jnp.asarray(xb), jnp.asarray(box),
                            jnp.asarray(1.0, jnp.float32), BETA, sa_j, inv_j)
     e_r = float(elj_r) + float(ec_r)
-    stats = {}
+    stats, stats_all = {}, {}
     center, ghost = direct.inputs(xbt, tb, rebuild(xbt, tb)[0])
     T.direct_force_plain(center, ghost, direct.starts, one, BETA, rc * rc,
-                         stats=stats)
+                         stats=stats, excl=direct.excl)
+    out_all = T.direct_force_plain(*direct.inputs(xbt, tb, sa),
+                                   direct.starts, one, BETA, rc * rc,
+                                   stats=stats_all, excl=Exclusions.empty(
+                                       tt.atom_mask.shape[0]))
+    wrap_all = float(T.cell_energies(out_all, tplan.n_cells).sum())
     scale = stats["e_abs_lj"] + stats["e_abs_c"]
     fix, new, wrap = (float(sum(e)) for e in (e_fix, e_new, e_wrap))
     assert abs(fix - new) <= 1e-6 * scale, (fix, new)
-    assert abs(wrap - e_r) <= 1e-6 * scale, (wrap, e_r)
+    assert abs(wrap_all - e_r) <= 1e-6 * (stats_all["e_abs_lj"]
+                                          + stats_all["e_abs_c"]), (
+        wrap_all, e_r)
     crossed = xb[w:w + stride, 0] >= box[0]
     assert crossed[0] and crossed[3] and not crossed[1:3].all()
     assert abs(wrap - new) > 1e2, (wrap, new)

@@ -5,17 +5,18 @@ the plain torch kernel on the CPU.
 sites cut into parts of at most PART_I; per part, the real sites of the 27
 neighbour cells kept if they lie within rc of the bounding box of the
 part's own center rows; 32-site j chunks over the warps; per chunk the
-pairs with r^2 < rc^2 and r^2 > 1e-9, queued and run in 32-lane batches.
+pairs with r^2 < rc^2 and r^2 > 1e-9, queued and run in 32-lane batches,
+where an excluded pair takes its lane and adds nothing.
 The prefilter may drop no pair: on every grid below the model's pairs must
 be exactly the pairs `direct_force_plain` evaluates (the same float32 r^2
-expression on the same inputs: no tolerance). The grids: the solvated
-8-residue polyalanine (capacity 128, 4 x 4 x 4 cells), random sites dense
-enough for capacity 256, an nc = 3 grid (the 27 neighbours are the whole
-box through the halo), atoms moved across the box faces after the rebuild
-(their images fixed at the rebuild, so their center rows lie outside
-[0, box)), pairs just inside the cutoff across the faces, and a cell
-layout whose real sites are not a prefix of the cell's slots (the kernel
-ranks real sites by their valid flag and assumes no prefix).
+expression on the same inputs, the same exclusion table: no tolerance). The
+grids: the solvated 8-residue polyalanine (capacity 128, 4 x 4 x 4 cells),
+random sites dense enough for capacity 256, an nc = 3 grid (the 27
+neighbours are the whole box through the halo), atoms moved across the box
+faces after the rebuild (their images fixed at the rebuild, so their center
+rows lie outside [0, box)), pairs just inside the cutoff across the faces,
+and a cell layout whose real sites are not a prefix of the cell's slots
+(the kernel ranks real sites by their valid flag and assumes no prefix).
 """
 import types
 
@@ -24,6 +25,7 @@ import pytest
 import torch
 
 from molchanica_tpu_torch.ops import direct_force as T
+from molchanica_tpu_torch.ops.exclusions import exclusion_table
 from molchanica_tpu_torch.ops.pme import ewald_beta_for
 from molchanica_tpu_torch.systems.bench_systems import build_solvated_protein
 
@@ -31,13 +33,17 @@ torch.set_num_threads(1)
 
 
 def _top(rng, n, n_coupled=3):
+    """Random sites with no excluded or 1-4 pairs."""
     f32 = lambda a: torch.tensor(a, dtype=torch.float32)
+    no_pairs = torch.zeros((0, 2), dtype=torch.int64)
     return types.SimpleNamespace(
         charges=f32(rng.normal(0, 0.4, n)),
         lj_sigma=f32(rng.uniform(2.8, 3.4, n)),
         lj_eps=f32(rng.uniform(0.05, 0.2, n)),
         couple_mask=f32(np.arange(n) < n_coupled),
-        atom_mask=f32(np.ones(n)))
+        atom_mask=f32(np.ones(n)), excl_idx=no_pairs,
+        excl_mask=f32(np.zeros(0)), pair14_idx=no_pairs,
+        pair14_mask=f32(np.zeros(0)))
 
 
 def _grid(top, x0, box, rc, x1=None, permute=None):
@@ -54,7 +60,7 @@ def _grid(top, x0, box, rc, x1=None, permute=None):
                             for _ in range(plan.n_cells)])
         base = torch.arange(plan.n_cells)[:, None] * plan.capacity
         sa = sa[(base + perm).reshape(-1)]
-    direct = T.DirectForce(top, plan)
+    direct = T.DirectForce(top, plan, exclusion_table(top))
     x = xt if x1 is None else torch.tensor(x1)
     center, ghost = direct.inputs(x, bt, sa, T.image_shift(xt, bt))
     return plan, direct, center, ghost
@@ -66,9 +72,9 @@ def _check(plan, direct, center, ghost):
     stats = {"keys": None}
     T.direct_force_plain(center, ghost, direct.starts, torch.tensor(0.5),
                          ewald_beta_for(plan.cutoff, 1e-5), direct.rc2,
-                         stats=stats)
+                         stats=stats, excl=direct.excl)
     work = T.direct_force_work(center, ghost, direct.starts, direct.rc2,
-                               keys=True)
+                               keys=True, excl=direct.excl)
     assert stats["pairs"] > 0
     assert work["pairs"] == stats["pairs"]
     assert torch.equal(work["keys"], stats["keys"])
@@ -80,7 +86,8 @@ def _check(plan, direct, center, ghost):
     assert work["staged"] <= work["real"] <= work["scanned"]
     assert work["staged"] <= 32 * work["chunks"] < work["staged"] \
         + 32 * work["active_blocks"]
-    assert -(-work["pairs"] // 32) <= work["batches"]
+    assert work["pairs"] <= work["queued"]
+    assert -(-work["queued"] // 32) <= work["batches"]
     assert 0.0 < work["lane_use"] <= 1.0
     return work
 
@@ -101,6 +108,8 @@ def test_solvated_capacity_128():
     plan, direct, center, ghost = _grid(top, x, box, 6.0)
     assert plan.capacity == 128 and plan.nc == (4, 4, 4)
     work = _check(plan, direct, center, ghost)
+    # the excluded pairs are queued and left out at the math
+    assert work["queued"] > work["pairs"]
     # the prefilter drops real neighbours; the schedule uses every block
     assert work["staged"] < work["real"]
     assert work["active_blocks"] >= plan.n_cells
@@ -156,7 +165,7 @@ def test_pairs_just_inside_the_cutoff_across_faces():
     work = _check(plan, direct, center, ghost)
     stats = {"keys": None}
     T.direct_force_plain(center, ghost, direct.starts, torch.tensor(1.0),
-                         0.3, direct.rc2, stats=stats)
+                         0.3, direct.rc2, stats=stats, excl=direct.excl)
     assert work["pairs"] == stats["pairs"]
 
 
@@ -174,7 +183,8 @@ def test_parts_cut_each_cell_evenly():
     PART_I sites each, none empty; the others of its C / PART_I exit."""
     rng, top, x, box = _random(9, (26.0, 27.0, 28.0), 0.2)
     plan, direct, center, ghost = _grid(top, x, box, 6.5)
-    work = T.direct_force_work(center, ghost, direct.starts, direct.rc2)
+    work = T.direct_force_work(center, ghost, direct.starts, direct.rc2,
+                               excl=direct.excl)
     n_c = (center[:, 7] > 0.5).reshape(plan.n_cells, -1).sum(1)
     assert work["active_blocks"] == int(((n_c + T.PART_I - 1)
                                          // T.PART_I).sum())
@@ -194,10 +204,10 @@ def test_plain_takes_beta_as_a_device_scalar():
     couple = torch.tensor(0.5)
     stats = {}
     ref = T.direct_force_plain(center, ghost, direct.starts, couple, beta,
-                               direct.rc2, stats=stats)
+                               direct.rc2, stats=stats, excl=direct.excl)
     out = T.direct_force_plain(center, ghost, direct.starts, couple,
                                torch.tensor(beta, dtype=torch.float32),
-                               direct.rc2)
+                               direct.rc2, excl=direct.excl)
     e = T.cell_energies(out, plan.n_cells).sum(1)
     rel_f, rel_e = T.direct_force_parity(out[:, :3], e, ref[:, :3], stats)
     assert rel_f < 1e-6 and rel_e < 1e-6
@@ -205,9 +215,9 @@ def test_plain_takes_beta_as_a_device_scalar():
 
 def test_wrapper_checks_counts():
     rng, top, x, box = _random(10, (20.0, 20.0, 20.0), 0.05)
-    plan, _, center, ghost = _grid(top, x, box, 6.0)
+    plan, direct, center, ghost = _grid(top, x, box, 6.0)
     for bad in (torch.zeros(2, dtype=torch.int64),
                 torch.zeros(1, dtype=torch.int32)):
         with pytest.raises(ValueError):
             T.direct_force_cuda(plan, center, ghost, torch.tensor(1.0), 0.3,
-                                counts=bad)
+                                counts=bad, excl=direct.excl)

@@ -6,14 +6,16 @@ polyalanine in a 24 A OPC box, 1,312 sites, 6 A cutoff), in float64.
 
 The port places the M sites before every cluster rebuild; the reference's
 FIRE never moves them (their dof_mask is 0), so its rebuild sorts them at
-their starting positions. Fed the same placed rows, the reference's FIRE
-is the port's: every evaluated energy within 1e-9 of |E| and the final
-positions within 1e-8 A. On that shared trace FIRE climbs once it has
-passed its lowest state: it falls from E0 = 2,360 to -1,256 kcal/mol at
-iteration 60 and ends near -577 (the velocity keeps the components that
-the 0.1 A clamp and the constraint projection take out of the move).
-The reference as it runs, with stale M rows, leaves that trace after its
-lowest state and climbs further.
+their starting positions. Fed the same placed rows, the reference's FIRE is
+the port's: every evaluated energy within 1e-9 of |E| and the final
+positions within 1e-8 A, once the reference's exclusion subtraction takes
+its kernels' erfc slope (tests/jax_reference.py: the port leaves those
+pairs out, the reference adds and subtracts them). On that shared trace
+FIRE climbs once it has passed its lowest state: it falls from E0 = 2,360
+to -1,256 kcal/mol at iteration 60 and ends near -577 (the velocity keeps
+the components that the 0.1 A clamp and the constraint projection take out
+of the move). The reference as it runs, with stale M rows, leaves that
+trace after its lowest state and climbs further.
 """
 import jax
 import jax.numpy as jnp
@@ -31,6 +33,7 @@ from molchanica_tpu_torch.md.engine import MdSim
 from molchanica_tpu_torch.md.minimize import fire_minimize
 from molchanica_tpu_torch.topology import (STATIC_FIELDS, TENSOR_FIELDS,
                                            topology_from_numpy)
+from jax_reference import kernel_slope
 
 torch.set_num_threads(1)
 
@@ -69,10 +72,11 @@ def traces():
             jax.debug.callback(lambda v: rec.append(float(v)), e)
             return f, (e, terms)
 
-        x, _ = fire_minimize_hostloop(force, s.positions, s.box, s.couple,
-                                      js.top.dof_mask, n_steps=N_ITERS,
-                                      constrain_positions=js._cp)
-        jax.effects_barrier()
+        with kernel_slope():
+            x, _ = fire_minimize_hostloop(
+                force, s.positions, s.box, s.couple, js.top.dof_mask,
+                n_steps=N_ITERS, constrain_positions=js._cp)
+            jax.effects_barrier()
         out[tag] = (np.array(rec), np.asarray(x))
     energies = []
     with torch.no_grad():

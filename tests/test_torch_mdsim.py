@@ -52,6 +52,7 @@ from molchanica_tpu_torch.ops import nonbonded as TN
 from molchanica_tpu_torch.ops import pme as TP
 from molchanica_tpu_torch.topology import (STATIC_FIELDS, TENSOR_FIELDS,
                                            topology_from_numpy)
+from jax_reference import reference_scales
 
 torch.set_num_threads(1)
 
@@ -214,17 +215,39 @@ def test_pme_rest_energy(pair):
     te = TE.make_energy_fn(tt, tcfg, "pme_rest", pme_recip_fn=trec)
     one_j, one_t = jnp.asarray(1.0, jnp.float32), torch.tensor(1.0)
     x = np.asarray(js.state.positions)
+    rc2 = max(KW["lj_cutoff"], KW["coulomb_cutoff"]) ** 2
+    beta = TP.ewald_beta_for(KW["coulomb_cutoff"], tcfg.ewald_rtol)
+
+    def sub(xx):
+        """The reference's subtraction of the excluded and 1-4 pairs from
+        its direct space, which the port's rest energy no longer makes
+        (its direct space leaves those pairs out): (e_lj, e_c)."""
+        el = ec = 0.0
+        for which in ("excl", "pair14"):
+            a, b = DF.pairlist_kernel_formula_energy(
+                JE.apply_virtual_sites(xx, js.top), _j(box), js.top,
+                getattr(js.top, f"{which}_idx"),
+                getattr(js.top, f"{which}_mask"), one_j, beta, rc2)
+            el, ec = el + a, ec + b
+        return el, ec
+
     e, g, e_r, g_r = _energy_pair(
         lambda xx: je(xx, _j(box), one_j)[0],
         lambda xx: te(xx, _t(box), one_t)[0], x)
-    assert abs(e - e_r) <= 1e-5 * abs(e_r)
-    assert np.abs(g - g_r).max() <= 1e-5 * np.abs(g_r).max()
+    e_s, g_s = jax.value_and_grad(lambda xx: sum(sub(xx)))(_j(x))
+    # the tolerances are the reference rest energy's own, as before; the
+    # expected values add back what it subtracts
+    assert abs(e - (e_r + float(e_s))) <= 1e-5 * abs(e_r)
+    g_want = g_r + np.asarray(g_s, np.float32)
+    assert np.abs(g - g_want).max() <= 1e-5 * np.abs(g_r).max()
     _, terms_j = jax.jit(je)(_j(x), _j(box), one_j)
+    el_s, ec_s = (float(v) for v in jax.jit(sub)(_j(x)))
     with torch.no_grad():
         _, terms_t = te(_t(x), _t(box), one_t)
     for k in ("bond", "angle", "dihedral", "lj", "coulomb", "recip"):
         ref = float(np.float32(terms_j[k]))
-        assert abs(float(terms_t[k]) - ref) <= 1e-5 * abs(ref), k
+        want = ref + {"lj": el_s, "coulomb": ec_s}.get(k, 0.0)
+        assert abs(float(terms_t[k]) - want) <= 1e-5 * abs(ref), k
     with pytest.raises(ValueError):
         TE.make_energy_fn(tt, tcfg, "cells_grid", pme_recip_fn=trec)
 
@@ -246,7 +269,7 @@ def test_force_fn_at_init(pair):
     ft, (et, tt_) = ts.force_fn(x, ts.state.box, ts.state.couple)
     fj = np.asarray(fj, np.float32)
     err = np.abs(ft.numpy() - fj).max(axis=1)
-    f_scale, e_scale = ts.direct_space_scales(x)
+    f_scale, e_scale = reference_scales(ts, x)
     tol = 1e-4 * np.abs(fj).max() + 1e-5 * f_scale.numpy()
     assert (err <= tol).all(), float((err / tol).max())
     assert np.abs(fj).max() > 10.0
@@ -259,7 +282,7 @@ def test_potential_energy(pair):
     js, ts, _, _ = pair
     e_ref = float(np.float32(js.potential_energy()))
     e = ts.potential_energy()
-    _, e_scale = ts.direct_space_scales(ts.state.positions)
+    _, e_scale = reference_scales(ts, ts.state.positions)
     assert abs(e - e_ref) <= 1e-5 * (abs(e_ref) + sum(e_scale.values()))
 
 
@@ -381,7 +404,7 @@ def _force_matches(js, ts, scaled=True):
     err = np.abs(ft.numpy() - fj).max(axis=1)
     tol = 1e-4 * np.abs(fj).max()
     if scaled:
-        f_scale, e_scale = ts.direct_space_scales(x)
+        f_scale, e_scale = reference_scales(ts, x)
         tol = tol + 1e-5 * f_scale.numpy()
     else:
         e_scale = _dense_scales(ts, x)

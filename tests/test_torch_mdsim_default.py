@@ -54,6 +54,7 @@ from molchanica_tpu_torch.ops import clusters as TCl
 from molchanica_tpu_torch.systems import testmols as TTm
 from molchanica_tpu_torch.topology import (STATIC_FIELDS, TENSOR_FIELDS,
                                            topology_from_numpy)
+from jax_reference import reference_scales
 
 torch.set_num_threads(1)
 
@@ -128,7 +129,7 @@ def test_force_at_init(nve):
     x = torch.tensor(np.asarray(s.positions))
     ft, (_, tt_) = ts.force_fn(x, ts.state.box, ts.state.couple)
     fj = np.asarray(fj)
-    f_scale, e_scale = ts.direct_space_scales(x)
+    f_scale, e_scale = reference_scales(ts, x)
     err = np.abs(ft.numpy() - fj).max(axis=1)
     tol = 1e-4 * np.abs(fj).max() + 1e-5 * f_scale.numpy()
     assert (err <= tol).all(), float((err / tol).max())
@@ -137,7 +138,7 @@ def test_force_at_init(nve):
     # the list and order the port rebuilds equal the reference's on the
     # same (placed) positions
     order_j, nbr_j, _ = jax.jit(js._rebuild)(s.positions, s.box)
-    order_t, nbr_t, _ = ts._rebuild(x, ts.state.box)
+    order_t, nbr_t, _, _ = ts._rebuild(x, ts.state.box)
     np.testing.assert_array_equal(order_t.numpy(), np.asarray(order_j))
     np.testing.assert_array_equal(nbr_t.numpy(), np.asarray(nbr_j))
 
@@ -244,7 +245,7 @@ def test_fire_relaxation(nve):
     assert len(energies) == 50
     np.testing.assert_allclose(x_t.numpy(), np.asarray(x_j), rtol=0,
                                atol=5e-3)
-    _, e_scale = ts.direct_space_scales(x_t)
+    _, e_scale = reference_scales(ts, x_t)
     assert abs(float(e_t) - float(e_j)) \
         <= 1e-5 * (abs(float(e_j)) + sum(e_scale.values()))
     assert float(energies[-1]) < float(energies[0])
@@ -257,7 +258,7 @@ def test_run_snapshots(system):
     snaps_t = ts.run(DT, 8, 4)
     assert len(snaps_t) == len(snaps_j) == 2
     assert ts.flush_snapshot_queues() is ts.snapshots
-    _, e_scale = ts.direct_space_scales(ts.state.positions)
+    _, e_scale = reference_scales(ts, ts.state.positions)
     scale = sum(e_scale.values())
     for a, b in zip(snaps_t, snaps_j):
         assert a.time == pytest.approx(b.time, abs=1e-12)
@@ -322,7 +323,7 @@ def test_fd_dhdl(system, dtype):
         assert abs(d_t - d_j) <= 1e-6 * abs(d_j)
         return
     _, (_, terms) = ts.force_fn(st.positions, st.box, st.couple)
-    _, e_scale = ts.direct_space_scales(st.positions)
+    _, e_scale = reference_scales(ts, st.positions)
     floor = EPS32 * (sum(abs(float(terms[k])) for k in TERMS)
                      + sum(e_scale.values())) / 2e-3
     assert abs(d_t - d_j) <= 4 * floor, (d_t, d_j, floor)
@@ -341,7 +342,7 @@ def test_overflow_replan(system, monkeypatch):
         ts.rebuild_neighbor_plan()
     assert ts._plan.m_neighbors == 32
     s = ts.state
-    assert int(ts._rebuild(s.positions, s.box)[2]) > 0
+    assert int(ts._rebuild(s.positions, s.box)[3]) > 0
     with pytest.raises(TEng.ClusterOverflowError):
         with torch.no_grad():
             ts._step_hostloop(DT, 4, False, None)
@@ -372,7 +373,7 @@ def test_window_backend(system):
         direct_backend="auto"), np.asarray(s.positions),
         box_extent=system[0].box_extent, method="cells_pme", relax=False,
         device="cpu")
-    f_scale, e_scale = clus.direct_space_scales(x)
+    f_scale, e_scale = reference_scales(clus, x)
     err = np.abs(ft.numpy() - fj).max(axis=1)
     tol = 1e-4 * np.abs(fj).max() + 1e-5 * f_scale.numpy()
     assert (err <= tol).all(), float((err / tol).max())

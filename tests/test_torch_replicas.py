@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+
 from molchanica_tpu.md.config import HydrogenConstraint as JH
 from molchanica_tpu.md.config import Integrator as JInt
 from molchanica_tpu.md.config import MdConfig as JCfg
@@ -48,6 +49,7 @@ from molchanica_tpu_torch.ops import direct_force as TDF
 from molchanica_tpu_torch.parallel.replicas import ReplicaFarm
 from molchanica_tpu_torch.topology import (STATIC_FIELDS, TENSOR_FIELDS,
                                            topology_from_numpy)
+from jax_reference import kernel_slope, reference_scales
 
 torch.set_num_threads(1)
 
@@ -243,9 +245,12 @@ def _farm_run(farm):
 @pytest.fixture(scope="module")
 def cluster_reference(solvated):
     """The reference's cluster farm in float64 (the solute coupled, 2
-    replicas at couples [1, 0.5]) over _farm_run."""
-    js, _ = _cluster_pair(solvated, "float64")
-    return _farm_run(JFarm(js, 2, couples=[1.0, 0.5], seed=2))
+    replicas at couples [1, 0.5]) over _farm_run, its exclusion
+    subtraction differentiated as its kernel's force is
+    (tests/jax_reference.py)."""
+    with kernel_slope():
+        js, _ = _cluster_pair(solvated, "float64")
+        return _farm_run(JFarm(js, 2, couples=[1.0, 0.5], seed=2))
 
 
 def test_farm_matches_the_reference_on_clusters(solvated, cluster_reference):
@@ -286,7 +291,8 @@ def test_k2_farm_on_the_cpu(solvated, cluster_reference):
         c1, g1 = direct.inputs(xv[k], ch.box, sa[k], shift[k])
         assert torch.equal(c1, center[k]) and torch.equal(g1, ghost[k])
         ref = TDF.direct_force_plain(c1, g1, direct.starts, ch.c[k],
-                                     ts._beta, direct.rc2)
+                                     ts._beta, direct.rc2,
+                                     excl=direct.excl)
         assert torch.equal(out[k], ref)
     f_b, e_lj, e_c, _ = direct(xv, ch.box, ch.c, ts._beta, sa, inv, shift)
     for k in range(2):
@@ -296,7 +302,7 @@ def test_k2_farm_on_the_cpu(solvated, cluster_reference):
         assert float(e_lj[k]) == float(el1) and float(e_c[k]) == float(ec1)
     # energies against the reference's cluster farm, rel 1e-5 of |E| plus
     # the direct space's |e| sums (the excluded solute pairs)
-    _, e_scale = ts.direct_space_scales(tf.x[0])
+    _, e_scale = reference_scales(ts, tf.x[0])
     tol = 1e-5 * (np.abs(e_j) + sum(e_scale.values()))
     assert (np.abs(e_t - e_j) <= tol).all(), (e_t, e_j, tol)
     assert np.isfinite(d_t).all()

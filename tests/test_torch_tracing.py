@@ -4,7 +4,9 @@ solvated system of tests/test_torch_replicas.py on clusters (made here by
 the port's build_solvated_protein, 2 replicas, 2 calls of 2 steps of 0.5
 fs): one `direct.rebuild`, two `farm.force` and two `pme` per farm step,
 one `farm.overflow_read` per call, and the same positions to the bit with
-tracing on and off. FastSim.run's `md.run` range is held in
+tracing on and off; on K2 (its plain version), K2's own spans inside the
+direct space's and the "k2_rebuild" counter, which clusters never open.
+FastSim.run's `md.run` range is held in
 tests/test_torch_barostat.py::test_run_trace_dir."""
 import threading
 from collections import Counter
@@ -170,3 +172,51 @@ def test_farm_spans(farms):
 def test_farm_bitwise_with_tracing(farms):
     _, x_on, x_off = farms
     assert torch.equal(x_on, x_off)
+
+
+@pytest.fixture(scope="module")
+def k2_farm():
+    """(spans, "k2_rebuild" count) of a farm of the same system on K2 (its
+    plain version on the CPU), CALLS calls of STEPS steps with tracing
+    on."""
+    asys = build_solvated_protein(n_residues=8, box_side=24.0, seed=3)
+    sim = MdSim(asys.topology, MdConfig(
+        integrator=Integrator.langevin_middle(gamma=1.0),
+        hydrogen_constraint=HydrogenConstraint.shake(), use_pallas=True,
+        **KW), asys.positions, box_extent=asys.box_extent,
+        method="cells_pme", relax=False, device="cpu")
+    assert sim._nbr_backend == "pallas"
+    farm = ReplicaFarm(sim, 2, seed=2)
+    tracing.reset_counters("k2_rebuild")
+    tracing.collect()
+    tracing.enable()
+    try:
+        for _ in range(CALLS):
+            farm.step(DT, STEPS)
+    finally:
+        tracing.disable()
+    return tracing.collect(), tracing.counters("k2_rebuild")
+
+
+def test_k2_spans_open_inside_the_direct_space(k2_farm):
+    """On K2: one `k2.rebuild` inside each `direct.rebuild`, one
+    `k2.inputs` and one `k2.kernel` inside each `direct.force`, and the
+    counter "k2_rebuild" one per batched rebuild (per farm step, whatever
+    the replicas)."""
+    spans, counts = k2_farm
+    steps = CALLS * STEPS
+    n = Counter(s[0] for s in spans)
+    assert n["k2.rebuild"] == n["direct.rebuild"] == steps
+    assert n["k2.inputs"] == n["k2.kernel"] == n["direct.force"] == 2 * steps
+    assert counts == {"k2_rebuild": steps}
+    by_id = {s[1]: s for s in spans}
+    inside = {"k2.rebuild": "direct.rebuild", "k2.inputs": "direct.force",
+              "k2.kernel": "direct.force"}
+    for s in spans:
+        if s[0] in inside:
+            assert by_id[s[2]][0] == inside[s[0]], s
+
+
+def test_no_k2_spans_on_clusters(farms):
+    spans = farms[0]
+    assert not [s for s in spans if s[0].startswith("k2.")]

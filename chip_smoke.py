@@ -263,10 +263,18 @@ Phases, each printed on lines of its own:
      current state as a 25k-site frame through render_snapshot's scene:
      primitives, fragments, the card's render ms after a warm-up, and
      >= 99.9% of its pixels within 2/255 of the same code on the CPU;
- 49. the per-phase wall seconds (phase_seconds), the kernel JSON line, the
+ 49. Z: SPME's stencil kernels (csrc/pme_stencil.cu) at the benchmark
+     cells' shapes (config3_k2.farm13: 13 replicas, 60^3;
+     config5_duplex.farm4: 4 replicas, 48^3), on the farms the benchmark
+     builds: the "pme_spread" and "pme_gather" launches over one farm call
+     equal to its force evaluations; on the farm's replicas Pme3.batched's
+     energies and gradients against the dense plain version; each kernel's
+     ms per launch, bound, plain ms and registers; the peak memory of one
+     batched evaluation with the kernels and with the plain version;
+ 50. the per-phase wall seconds (phase_seconds), the kernel JSON line, the
      card line, and the final JSON result line.
-     Order and processes: G runs right after 23, so that its kernel time
-     is taken while no other process shares the card. Then three worker
+     Order and processes: G and Z run right after 23, so that their kernel
+     times are taken while no other process shares the card. Then three worker
      processes (this script with --worker GROUP) run V-X; I-M; and N-U
      beside this process, which goes on with A-F, H and Y. Each
      worker's lines are printed after its group's name when it ends; a
@@ -468,6 +476,17 @@ I_PROD = 22
 # keeps its 400: after 100 its wet-octanol windows blew up, both end
 # points past 1e14 K (one H100)
 FARM_FIRE = 100
+# phase Z: the benchmark cells whose shapes it runs SPME's stencil kernels
+# at and the seed of their farms. Its gate: each float32 quantity
+# (energies, dE/dx, dE/dq, relative to the largest magnitude) no further
+# from the dense version in float64 than twice the dense float32
+# version's own distance plus PME_TOL_FLOOR. Both float32 routes share
+# the DFT and the rounded positions: on the farms' replicas each reads
+# ~2.5e-5 in the gradients (config 3), against ~1.5e-6 on the card tests'
+# uniform inputs
+PME_CELLS = ("config3_k2.farm13", "config5_duplex.farm4")
+PME_SEED = 2_718_281_828
+PME_TOL_FLOOR = 1e-6
 J_WINDOWS = 4
 J_SPLIT_TOL = 1e-5
 # phases H and I: a lambda window whose final T is above WINDOW_BLOWUP_K
@@ -3136,6 +3155,151 @@ def farm_k2_phase(asys, d, torch, np):
                        peak_gib=peak, temperatures_K=temps.tolist(),
                        relax=dict(path=r["path"], ends=r["block_ends"],
                                   kept=r["kept"]))
+
+
+def pme_phase(torch, np):
+    """Phase Z: SPME's stencil kernels (csrc/pme_stencil.cu) at the two
+    benchmark cells' shapes, on the farms the benchmark builds
+    (benchmark/harness.py's set-up at PME_SEED): the "pme_spread" and
+    "pme_gather" counters over one farm call equal its force evaluations;
+    on the farm's placed replicas, Pme3.batched's energies, dE/dx and dE/dq
+    against the same code with the dense plain spread and gather, replica
+    by replica, in float64, held to the plain version's own float32
+    distance (PME_TOL_FLOOR above); each kernel's device ms per launch
+    (graph_ms, the spread with its mesh's zeroing) and eager ms, its bound
+    (counts.py's stencil operations, 2 and 6 per point of each charged
+    site, or its bytes), the plain version's ms, its registers; the peak
+    device memory of one batched evaluation with the kernels and with the
+    plain version. Returns (kernel entries, summary)."""
+    from benchmark.harness import Run
+    from molchanica_tpu_torch import cuda_build, tracing
+    from molchanica_tpu_torch.ops import pme3
+
+    entries, summary = [], {}
+    for cell in PME_CELLS:
+        tag = f"pme {cell}"
+        t0 = time.perf_counter()
+        run = Run(ROOT, cell, PME_SEED, "cuda")
+        run.setup()
+        farm, sim = run.farm, run.sim
+        tracing.reset_counters("pme_")
+        evals0 = farm.force_evals
+        farm.step(run.dt, run.k)
+        torch.cuda.synchronize()
+        n_eval = farm.force_evals - evals0
+        launches = tracing.counters("pme_")
+        say(f"[{tag}] farm set-up and one call {time.perf_counter() - t0:.1f}"
+            f" s; launches over one call of {run.k} farm steps: {launches} "
+            f"(force evaluations {n_eval})")
+        if launches != {"pme_spread": n_eval, "pme_gather": n_eval}:
+            raise SystemExit(f"{tag}: launches {launches} != {n_eval} each")
+        ch = farm._chunks[0]
+        top = sim.top
+        with torch.no_grad():
+            x = ch.b.place(farm.x)
+        box = ch.box
+        q = (top.charges * top.atom_mask)[None] \
+            * (1.0 - top.couple_mask[None] * (1.0 - ch.c[:, None]))
+        R, n = x.shape[:2]
+        pme = pme3.Pme3(sim._recip.grid, float(sim._beta), device="cuda",
+                        dtype=sim.dtype)
+        pme64 = pme3.Pme3(sim._recip.grid, float(sim._beta), device="cuda",
+                          dtype=torch.float64)
+        K = pme.K
+
+        def plain_routes(p):
+            def spread(K_, x_, q_, box_):
+                return torch.stack([p._spread_plain(x_[r], q_[r], box_)
+                                    for r in range(x_.shape[0])])
+
+            def gather(K_, x_, q_, box_, phi_):
+                out = [p._gather_plain(x_[r], q_[r], box_, phi_[r])
+                       for r in range(x_.shape[0])]
+                return (torch.stack([g for g, _ in out]),
+                        torch.stack([g for _, g in out]))
+            return spread, gather
+
+        def evaluate(p, x_, q_, box_, routes=None):
+            """(peak MiB above what is allocated before, (energies, dE/dx,
+            dE/dq) in float64) of one batched evaluation with p, through
+            the kernels or the given (spread, gather)."""
+            saved = pme3.pme_spread_cuda, pme3.pme_gather_cuda
+            if routes:
+                pme3.pme_spread_cuda, pme3.pme_gather_cuda = routes
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            try:
+                xg = x_.clone().requires_grad_(True)
+                qg = q_.clone().requires_grad_(True)
+                with torch.enable_grad():
+                    e = p.batched(xg, qg, box_)
+                    gx, gq = torch.autograd.grad(e.sum(), (xg, qg))
+                torch.cuda.synchronize()
+            finally:
+                pme3.pme_spread_cuda, pme3.pme_gather_cuda = saved
+            mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            return mib, [t.detach().double() for t in (e, gx, gq)]
+
+        plain_spread, plain_gather = plain_routes(pme)
+        mem_k, kern = evaluate(pme, x, q, box)
+        mem_p, same = evaluate(pme, x, q, box, (plain_spread, plain_gather))
+        _, ref = evaluate(pme64, x.double(), q.double(), box.double(),
+                          plain_routes(pme64))
+        rel = [float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(kern, ref)]
+        rel_p = [float((a - b).abs().max() / b.abs().max())
+                 for a, b in zip(same, ref)]
+        limits = [2.0 * v + PME_TOL_FLOOR for v in rel_p]
+        say(f"[{tag}] {R} replicas of {n} sites, mesh {K}: against the "
+            f"dense plain version in float64 (energies, dE/dx, dE/dq), the "
+            f"kernels {', '.join(f'{v:.3e}' for v in rel)}, the plain "
+            f"version in {x.dtype} {', '.join(f'{v:.3e}' for v in rel_p)} "
+            f"(limits {', '.join(f'{v:.3e}' for v in limits)}); peak device "
+            f"memory of one batched evaluation {mem_k:.1f} MiB, plain "
+            f"(replica by replica) {mem_p:.1f} MiB")
+        if any(v > lim for v, lim in zip(rel, limits)):
+            raise SystemExit(f"{tag}: the kernels are further from float64 "
+                             f"than the dense float32 version")
+        phi = torch.randn((R,) + K, dtype=x.dtype, device="cuda")
+        charged = int((q != 0).sum())
+        mesh_b = R * K[0] * K[1] * K[2] * x.element_size()
+        site_b = (x.numel() + q.numel()) * x.element_size()
+        kernels = {
+            "pme_spread": (lambda: pme3.pme_spread_cuda(K, x, q, box),
+                           lambda: plain_spread(K, x, q, box),
+                           charged * 2 * 216, site_b + mesh_b),
+            "pme_gather": (lambda: pme3.pme_gather_cuda(K, x, q, box, phi),
+                           lambda: plain_gather(K, x, q, box, phi),
+                           charged * 6 * 216, 2 * site_b + mesh_b),
+        }
+        for name, (fn, plain_fn, ops, nbytes) in kernels.items():
+            with torch.no_grad():
+                ms = graph_ms(fn, 50)
+                call_ms = cuda_ms(fn, 50)
+                plain_ms = cuda_ms(plain_fn, 3)
+            t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+            regs = ptxas_report(cuda_build.build_log, name)
+            say(f"[{tag}] {name}: {ms:.4f} ms per launch (device; "
+                f"{call_ms:.4f} per eager call), bound "
+                f"{max(t_ops, t_bytes):.5f} ms ({ops} FP32 ops, {nbytes} "
+                f"bytes), plain {plain_ms:.2f} ms; {'; '.join(regs)}")
+            entries.append(dict(
+                name=f"{name}.{cell.split('.')[0]}", route="cuda",
+                source="molchanica_tpu_torch/csrc/pme_stencil.cu",
+                replaces="none (molchanica_tpu/ops/pme3.py: dense XLA "
+                         "products)",
+                launches=launches[name], max_abs_err=None, ms=ms,
+                plain_ms=plain_ms, call_ms=call_ms,
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=None, replicas=R, registers=regs))
+        summary[cell] = dict(rel=rel, plain_rel=rel_p, peak_mib=mem_k,
+                             plain_peak_mib=mem_p, launches=launches,
+                             force_evals=n_eval)
+        del run, farm, sim, kern, same, ref
+        torch.cuda.empty_cache()
+    return entries, summary
 
 
 def hydration_farm_phase(asys_h, cfg_h, x_rel, torch, np):
@@ -6033,6 +6197,11 @@ def main():
     entries.append(farm_entry)
     mark("G")
 
+    # ---- 49. Z: SPME's stencil kernels at the benchmark cells' shapes ----
+    pme_entries, pme_res = pme_phase(torch, np)
+    entries += pme_entries
+    mark("Z")
+
     # ---- the phases I-X in worker processes beside this one ----
     t_split = time.perf_counter()
     workers += start_workers()
@@ -6092,7 +6261,7 @@ def main():
         f"{time.time() - t_start:.1f} s")
     k2["launches_phase_o"] = wres["ligand_k2"]["launches"]
 
-    # ---- 49. results ----
+    # ---- 50. results ----
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     if args.profile:
@@ -6113,7 +6282,7 @@ def main():
                            k2_grids=k2_grids, mdd_init=mdd_init,
                            clusters=clus, mdd=mdd, mdd_npt=mdd_npt,
                            vacuum=vac, alch_md=alch_md, farm_k2=farm_k2,
-                           farm_h=farm_h, cli=cli_res,
+                           farm_h=farm_h, cli=cli_res, pme=pme_res,
                            **wres, phase_seconds=phase_s, kernels=entries),
                       fh, indent=1, default=str)
     say("phase_seconds " + json.dumps(phase_s))

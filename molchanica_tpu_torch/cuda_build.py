@@ -19,7 +19,7 @@ from concurrent.futures import ThreadPoolExecutor
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "csrc", name)
            for name in ("colpair.cu", "direct_force.cu", "probe_prefetch.cu",
-                        "cluster_force.cu")]
+                        "cluster_force.cu", "pme_stencil.cu")]
 BUILD_DIR = os.path.join(_HERE, "_build")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # no --use_fast_math: the kernels' pair math must match the plain torch
@@ -36,6 +36,8 @@ ENTRIES = {
     "probe_launch": [_I] * 3 + [_P] * 7,
     "cluster_force_launch": [_I] * 7 + [ctypes.c_longlong, _D] + [_P] * 5
     + [_I] + [_P] * 8,
+    "pme_spread_launch": [_I] * 6 + [_P] * 6,
+    "pme_gather_launch": [_I] * 6 + [_P] * 7,
 }
 
 _lib = None

@@ -22,7 +22,8 @@ synchronizes and allocates nothing on a device.
 
 Counters (`count`, `counters`, `reset_counters`) are named integers,
 always on: the kernels' launch counts ("direct_force", "probe_prefetch",
-"cluster_force", and one per colpair instance name, "colpair_...") and
+"cluster_force", "pme_spread", "pme_gather", and one per colpair instance
+name, "colpair_...") and
 K2's rebuilds ("k2_rebuild", one per call of its rebuild, batched or not).
 """
 from __future__ import annotations

@@ -38,3 +38,14 @@ def _c_params(name):
 @pytest.mark.parametrize("name", sorted(cuda_build.ENTRIES))
 def test_argtypes_follow_the_c_signature(name):
     assert cuda_build.ENTRIES[name] == _c_params(name)
+
+
+def test_pme_stencil_entries():
+    """SPME's spread and gather (csrc/pme_stencil.cu) are built and bound:
+    dtype, replicas, sites and the three mesh sides, then the pointers
+    (x, q, box; the spread's integer scratch and mesh, the gather's phi,
+    gx, gq) and the stream."""
+    assert "pme_stencil.cu" in [p.split("/")[-1] for p in cuda_build.SOURCES]
+    P, I = ctypes.c_void_p, ctypes.c_int
+    assert cuda_build.ENTRIES["pme_spread_launch"] == [I] * 6 + [P] * 6
+    assert cuda_build.ENTRIES["pme_gather_launch"] == [I] * 6 + [P] * 7
